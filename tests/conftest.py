@@ -18,6 +18,13 @@ from repro.config import get_config
 from repro.models.api import build_model
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: needs a CUDA card; skips (inside the test) without "
+        "one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
