@@ -9,18 +9,29 @@ NVIDIA card.
 2. Holds each kernel against its plain PyTorch version on the card, on the
    same inputs, at the main path's shapes: the stem boundary (4, 64, 112,
    112) and the res5 boundary (4, 2048, 7, 7) of full-width ResNet-50 at
-   batch 4, plus one odd-sized tensor, at 2, 4, 8 and 16 bits. Codes and
-   Huffman words must be byte-identical, dequantized floats bit-identical
+   batch 4, plus one odd-sized tensor, at 2, 4, 8 and 16 bits for the
+   per-tensor kernels K1-K3; the same shapes and the ``gap`` boundary
+   (4, 2048) at 2, 3, 4, 5, 8 and 16 bits for the per-channel K4 / K5,
+   whose B = 4 stacks must also equal four single calls. Codes, words and
+   ranges must be byte-identical, dequantized floats bit-identical
    (float32 and bfloat16). Times are CUDA-event medians with the L2 cache
    flushed before every call; the bound is the bytes the function must
    move over 3.35 TB/s.
 3. Serves full-width ResNet-50 (random weights from a seed) through
    ``build_edge_cloud_server`` -> ``EdgeCloudServer.serve_batch`` with each
-   codec pinned, under a bandwidth trace, with every launch counter set to
-   0 just before and read just after. Fails unless every kernel ran, every
-   codec chose a decoupled plan, the logits are finite, and one decoupled
-   request's logits agree with the same plan and weights run on the CPU.
-4. Prints a ``{"kernels": [...]}`` line, then, last,
+   of the three codecs pinned, then with all three in the tables, under a
+   bandwidth trace, with every launch counter set to 0 just before and
+   read just after. Fails unless every kernel ran, every codec chose a
+   decoupled plan, the logits are finite, and one decoupled request's
+   logits per codec agree with the same plan and weights run on the CPU.
+4. Serves full-width ResNet-50 through ``PipelinedEdgeCloudServer``
+   (micro-batches of 4) with all three codecs in the tables and with each
+   pinned, under a bandwidth step, counters again set to 0 before and read
+   after. Fails unless every kernel ran, a re-plan fired, every request
+   has finite logits, every micro-batched blob equals the per-request
+   encode of its request and plan, and every request's logits equal the
+   cloud step of its blob.
+5. Prints a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -43,12 +54,23 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 SHAPES = {"stem": (4, 64, 112, 112), "res5": (4, 2048, 7, 7),
           "odd": (1, 3, 37, 41)}
 BITS = (2, 4, 8, 16)
+PC_SHAPES = {"stem": ((4, 64, 112, 112), 1), "res5": ((4, 2048, 7, 7), 1),
+             "gap": ((4, 2048), 1), "odd": ((1, 3, 37, 41), 1)}
+PC_BITS = (2, 3, 4, 5, 8, 16)
+CODECS = ("huffman", "bitpack", "perchannel")
 TRACE = (300e3, 3e6, 3e7, 1e9)     # bytes/s, one request each
+# Pipeline: a bandwidth step, served in micro-batches of 4 requests.
+PIPE_MICRO = 4
+PIPE_STEP = (1e9, 3e5)
 # Logits of the card and the CPU run of one plan: float32 convolutions sum
 # in another order in cuDNN than on the CPU (~1e-6 relative), and a boundary
 # element that lands that close to a rounding edge moves one quantization
 # step, so the tolerance is a small share of the logits' scale.
 LOGITS_RTOL = 2e-2
+
+
+KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
+           "pc_decode")
 
 
 class SmokeFailure(RuntimeError):
@@ -228,6 +250,97 @@ def check_kernels(torch, results):
     return rows, worst
 
 
+def check_perchannel_kernels(torch, results):
+    """Step 2, per channel: K4 and K5 against their plain versions."""
+    from repro_torch.core.quantization import dequant_step
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    worst = {"pc_encode": 0.0, "pc_decode": 0.0}
+    for label, (shape, axis) in PC_SHAPES.items():
+        stack = torch.relu(torch.randn((4,) + shape, device=dev,
+                                       generator=gen))
+        xb = stack[:1]
+        outer, c, inner = qref.channel_dims(shape, axis)
+        n = outer * c * inner
+        for bits in PC_BITS:
+            words, mn, mx = qops.pc_encode(xb, bits, axis)
+            pw, pmn, pmx = qref.pc_encode_ref(xb, bits, axis)
+            diff = (words != pw).sum()
+            worst["pc_encode"] = max(worst["pc_encode"], float(diff))
+            check(torch.equal(words, pw), f"K4 words {label} {bits}")
+            check(torch.equal(mn, pmn) and torch.equal(mx, pmx),
+                  f"K4 ranges {label} {bits}")
+            for dt, bits_view in ((torch.float32, torch.int32),
+                                  (torch.bfloat16, torch.int16)):
+                got = qops.pc_decode(words, mn, mx, bits, shape, axis, dt)
+                want = qref.pc_decode_ref(words, mn, mx, bits, shape, axis,
+                                          dt)
+                err = (got.float() - want.float()).abs().max()
+                worst["pc_decode"] = max(worst["pc_decode"], float(err))
+                check(torch.equal(got.view(bits_view), want.view(bits_view)),
+                      f"K5 {label} {bits} {dt}")
+            # A B = 4 stack against four single calls.
+            sw, smn, smx = qops.pc_encode(stack, bits, axis)
+            sout = qops.pc_decode(sw, smn, smx, bits, shape, axis)
+            for b in range(4):
+                w1, mn1, mx1 = qops.pc_encode(stack[b:b + 1], bits, axis)
+                check(torch.equal(sw[b:b + 1], w1)
+                      and torch.equal(smn[b:b + 1], mn1)
+                      and torch.equal(smx[b:b + 1], mx1),
+                      f"K4 stack {label} {bits} sample {b}")
+                check(torch.equal(sout[b:b + 1], qops.pc_decode(
+                    w1, mn1, mx1, bits, shape, axis)),
+                    f"K5 stack {label} {bits} sample {b}")
+            wire = words.numel() * 4 + 8 * c
+            rows.append(dict(
+                kernel="pc_encode", shape=label, bits=bits,
+                ms=device_ms(torch, lambda: qops.pc_encode(xb, bits, axis),
+                             flush),
+                plain_ms=device_ms(torch, lambda: qref.pc_encode_ref(
+                    xb, bits, axis), flush, reps=7),
+                bound_ms=bound_ms(4 * n + wire), library_ms=None))
+            lib = None
+            if bits == 8:
+                # One PyTorch call on the unpacked u8 codes, in the output
+                # layout, as the yardstick of the decode.
+                step = dequant_step(mn, mx, bits)
+                codes = ((words.to(torch.int64)[..., None]
+                          >> torch.arange(0, 32, 8, device=dev)) & 255)
+                codes = (codes.reshape(1, c, -1)[:, :, :outer * inner]
+                         .reshape(1, c, outer, inner).transpose(1, 2)
+                         .reshape((1,) + shape).to(torch.uint8))
+                rshape = [1] * (len(shape) + 1)
+                rshape[axis + 1] = c
+                mcol, scol = mn.reshape(rshape), step.reshape(rshape)
+                lib = device_ms(torch, lambda: torch.addcmul(
+                    mcol, codes, scol), flush)
+            rows.append(dict(
+                kernel="pc_decode", shape=label, bits=bits,
+                ms=device_ms(torch, lambda: qops.pc_decode(
+                    words, mn, mx, bits, shape, axis), flush),
+                plain_ms=device_ms(torch, lambda: qref.pc_decode_ref(
+                    words, mn, mx, bits, shape, axis), flush, reps=7),
+                bound_ms=bound_ms(wire + 4 * n), library_ms=lib))
+            if label == "stem" and bits == 8:
+                calls = {
+                    "pc_encode": lambda: qops.pc_encode(xb, bits, axis),
+                    "pc_decode": lambda: qops.pc_decode(
+                        words, mn, mx, bits, shape, axis)}
+                for r in rows[-2:]:
+                    r["profiled_ms"] = profiled_ms(torch, calls[r["kernel"]])
+            print(f"  {label:5s} {bits:2d} bits  " + "  ".join(
+                f"{r['kernel']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
+                f", bound {r['bound_ms']:.4f})" for r in rows[-2:]))
+    results["kernel_rows"] += rows
+    results["max_abs_err"].update(worst)
+    return rows, worst
+
+
 def stage_ms(torch, runner, batch, reps: int = 5):
     """Host-clock median of each stage of one served request, each ended
     by a synchronize: head, encode (device work + copy of the payload to
@@ -261,16 +374,26 @@ def stage_ms(torch, runner, batch, reps: int = 5):
     return {k: statistics.median(v[1:]) for k, v in acc.items()}
 
 
-def serve_main_path(torch, results):
-    """Step 3: full-width ResNet-50 through the served JALAD path."""
+def pinned_engine(base, codec: str):
+    """``base`` with the tables cut to one codec."""
     import dataclasses
 
+    from repro_torch.core.decoupler import JaladEngine
+
+    k = base.tables.codec_index(codec)
+    tables = dataclasses.replace(
+        base.tables, codecs=[codec],
+        acc_drop=base.tables.acc_drop[:, :, k:k + 1],
+        size_bytes=base.tables.size_bytes[:, :, k:k + 1])
+    return JaladEngine(base.model, tables, base.latency,
+                       dataclasses.replace(base.cfg, codec_choices=(codec,)),
+                       point_indices=base.point_indices)
+
+
+def serve_main_path(torch, results):
+    """Step 3: full-width ResNet-50 through the served JALAD path."""
     from repro_torch.config import JaladConfig, get_config
-    from repro_torch.core.decoupler import (
-        DecoupledPlan,
-        DecoupledRunner,
-        JaladEngine,
-    )
+    from repro_torch.core.decoupler import DecoupledPlan, DecoupledRunner
     from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.models.bridge import params_to
@@ -280,7 +403,7 @@ def serve_main_path(torch, results):
     )
 
     cfg = get_config("resnet50")
-    jc = JaladConfig(codec_choices=("huffman", "bitpack"))
+    jc = JaladConfig(codec_choices=CODECS)
     t0 = time.perf_counter()
     server, params = build_edge_cloud_server(
         cfg, jc, calib_batches=1, calib_batch_size=4, device="cuda")
@@ -292,15 +415,9 @@ def serve_main_path(torch, results):
     names = base.model.decoupling_points()
     served = []
     qops.reset_launch_counts()
-    for codec in ("huffman", "bitpack"):
-        k = base.tables.codec_index(codec)
-        tables = dataclasses.replace(
-            base.tables, codecs=[codec],
-            acc_drop=base.tables.acc_drop[:, :, k:k + 1],
-            size_bytes=base.tables.size_bytes[:, :, k:k + 1])
-        engine = JaladEngine(base.model, tables, base.latency,
-                             dataclasses.replace(jc, codec_choices=(codec,)),
-                             point_indices=base.point_indices)
+    runs = [(codec, pinned_engine(base, codec)) for codec in CODECS]
+    runs.append(("all", base))
+    for label, engine in runs:
         srv = EdgeCloudServer(engine, params)
         for i, bw in enumerate(TRACE):
             batch = make_batch(cfg, 4, 64, seed=100 + i)
@@ -313,31 +430,32 @@ def serve_main_path(torch, results):
             check(bool(torch.isfinite(logits).all()),
                   "non-finite logits")
             point = names[bd.plan_point] if bd.plan_point >= 0 else "cloud"
-            print(f"  {codec:7s} bw={bw:9.0f} B/s  point={point:9s} "
-                  f"bits={bd.plan_bits:2d} codec={bd.plan_codec:7s} "
+            print(f"  {label:10s} bw={bw:9.0f} B/s  point={point:9s} "
+                  f"bits={bd.plan_bits:2d} codec={bd.plan_codec:10s} "
                   f"sent={bd.bytes_sent} B  modeled={bd.total_s * 1e3:.2f} ms"
                   f"  wall={wall * 1e3:.1f} ms")
-            served.append(dict(codec=codec, bandwidth=bw, point=point,
-                               bits=bd.plan_bits, bytes=bd.bytes_sent,
-                               modeled_s=bd.total_s, wall_s=wall,
-                               batch=batch, logits=logits, plan=bd))
+            served.append(dict(tables=label, codec=bd.plan_codec,
+                               bandwidth=bw, point=point, bits=bd.plan_bits,
+                               bytes=bd.bytes_sent, modeled_s=bd.total_s,
+                               wall_s=wall, batch=batch, logits=logits,
+                               plan=bd))
     torch.cuda.synchronize()
     counts = qops.launch_counts()
-    print(f"main path launches: {counts}")
-    for name in ("fused_encode", "fused_decode", "huffman_pack"):
+    print(f"served path launches: {counts}")
+    for name in KERNELS:
         check(counts[name] > 0,
-              f"{name} never launched on the main path")
-    for codec in ("huffman", "bitpack"):
-        check(any(s["codec"] == codec and s["point"] != "cloud"
+              f"{name} never launched on the served path")
+    for codec in CODECS:
+        check(any(s["tables"] == codec and s["point"] != "cloud"
                   for s in served),
               f"no decoupled plan for {codec}")
     # At each codec's largest decoupled boundary: the same plan and
     # weights on the CPU, and where a served request's time goes.
     cpu_params = params_to(params, "cpu")
     stages = {}
-    for codec in ("huffman", "bitpack"):
+    for codec in CODECS:
         s = max((s for s in served
-                 if s["codec"] == codec and s["point"] != "cloud"),
+                 if s["tables"] == codec and s["point"] != "cloud"),
                 key=lambda s: s["bytes"])
         bd = s["plan"]
         plan = DecoupledPlan(bd.plan_point, bd.plan_bits, 0.0, 0.0, 0.0,
@@ -360,6 +478,83 @@ def serve_main_path(torch, results):
         calibration_s=calib_s, launches=counts, stages_ms=stages,
         requests=[{k: v for k, v in s.items()
                    if k not in ("batch", "logits", "plan")} for s in served])
+    return counts, base, params
+
+
+def serve_pipeline(torch, results, base, params):
+    """Step 4: full-width ResNet-50 through the pipelined server."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.serving.pipeline import (
+        PipelinedEdgeCloudServer,
+        PipelineRequest,
+    )
+
+    cfg = base.model.cfg
+    names = base.model.decoupling_points()
+    streams = [("all", base, 16)]
+    streams += [(codec, pinned_engine(base, codec), 8) for codec in CODECS]
+    report = {}
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    for label, engine, n in streams:
+        pipe = PipelinedEdgeCloudServer(engine, params,
+                                        micro_batch=PIPE_MICRO)
+        bws = [PIPE_STEP[0]] * (n // 2) + [PIPE_STEP[1]] * (n - n // 2)
+        reqs = [PipelineRequest(uid=i, batch=make_batch(cfg, 4, 64,
+                                                        seed=200 + i),
+                                bandwidth=bw) for i, bw in enumerate(bws)]
+        # One serve() call per micro-batch: each call's requests are one
+        # drained group, decided after every earlier transfer was observed.
+        done = []
+        qops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(0, n, PIPE_MICRO):
+            done += pipe.serve(reqs[i:i + PIPE_MICRO])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # Counted before the checks below, whose own encodes do not count.
+        for name, v in qops.launch_counts().items():
+            counts[name] += v
+        # The simulated clock runs on across serve() calls.
+        makespan = max(r.timeline.cloud_end for r in done)
+        sync = sum(r.timeline.service_s for r in done)
+        check(len(done) == n, f"pipeline {label}: {len(done)} of {n} done")
+        batched = 0
+        for r in done:
+            check(tuple(r.logits.shape) == (4, cfg.num_classes)
+                  and bool(torch.isfinite(r.logits).all()),
+                  f"pipeline {label} request {r.uid} logits")
+            if r.plan.is_cloud_only:
+                continue
+            runner = pipe.runners.get(r.plan)
+            if r.encode_group > 1:
+                batched += 1
+                blob, _ = runner.edge_step(r.batch)
+                check(blob.payload == r.blob.payload
+                      and blob.x_min.tobytes() == r.blob.x_min.tobytes()
+                      and blob.x_max.tobytes() == r.blob.x_max.tobytes(),
+                      f"pipeline {label} request {r.uid}: micro-batched "
+                      "blob differs from the per-request encode")
+            check(torch.equal(r.logits, runner.cloud_step(r.blob)),
+                  f"pipeline {label} request {r.uid}: logits differ from "
+                  "the cloud step of its blob")
+        check(batched > 0, f"pipeline {label}: no micro-batched encode")
+        switches = pipe.controller.switch_count()
+        plans = [(names[r.plan.point] if r.plan.point >= 0 else "cloud",
+                  r.plan.bits, r.timeline.plan_codec) for r in done]
+        print(f"  pipeline {label:10s} {n} requests: makespan "
+              f"{makespan * 1e3:.2f} ms vs synchronous {sync * 1e3:.2f} ms "
+              f"(modeled), wall {wall * 1e3:.1f} ms, {batched} "
+              f"micro-batched, {switches} re-plans; plans {plans}")
+        report[label] = dict(requests=n, makespan_s=makespan,
+                             synchronous_s=sync, wall_s=wall,
+                             microbatched=batched, replans=switches,
+                             plans=plans)
+    check(report["all"]["replans"] >= 1, "pipeline: no re-plan fired")
+    print(f"pipeline launches: {counts}")
+    for name in KERNELS:
+        check(counts[name] > 0, f"{name} never launched in the pipeline")
+    results["pipeline"] = dict(launches=counts, streams=report)
     return counts
 
 
@@ -393,7 +588,10 @@ def main(argv=None) -> int:
                     print(f"  ptxas {name}: {line.strip()}")
     results["build_s"] = build_s
     rows, worst = check_kernels(torch, results)
-    counts = serve_main_path(torch, results)
+    pc_rows, _ = check_perchannel_kernels(torch, results)
+    rows = rows + pc_rows
+    served, base, params = serve_main_path(torch, results)
+    piped = serve_pipeline(torch, results, base, params)
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel
@@ -406,13 +604,19 @@ def main(argv=None) -> int:
                          "src/repro/kernels/quantize/quantize.py:246"),
         "huffman_pack": ("src/repro_torch/csrc/huffman_pack.cu",
                          "src/repro/kernels/entropy/huffman.py:192"),
+        "pc_encode": ("src/repro_torch/csrc/perchannel.cu",
+                      "src/repro/kernels/quantize/quantize.py:321"),
+        "pc_decode": ("src/repro_torch/csrc/perchannel.cu",
+                      "src/repro/kernels/quantize/quantize.py:376"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = row(name)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": served[name] + piped[name],
+            "launches_by_path": {"served": served[name],
+                                 "pipeline": piped[name]},
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"]})

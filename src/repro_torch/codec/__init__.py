@@ -1,14 +1,13 @@
 """Pluggable boundary codecs: the wire formats that carry quantized
 boundary features across the edge-cloud link.
 
-Importing this package registers the ported codecs:
+Importing this package registers the three codecs of the reference:
 
 * ``huffman`` — the paper's codec: per-tensor quantize + Huffman (device
   histogram + kernel K3 on the edge, host decode + kernel K2 on the cloud).
 * ``bitpack`` — fused quantize + pack on the device (kernels K1 / K2).
-
-``perchannel`` is not ported yet; ``get_codec("perchannel")`` raises the
-registry's ``KeyError``.
+* ``perchannel`` — per-channel ranges + true c-bit packing on the device
+  (kernels K4 / K5).
 """
 from repro_torch.codec.base import (
     BoundaryCodec,
@@ -20,6 +19,7 @@ from repro_torch.codec.base import (
 )
 from repro_torch.codec.huffman import HuffmanCodec
 from repro_torch.codec.bitpack import BitpackCodec
+from repro_torch.codec.perchannel import PerChannelCodec
 
 __all__ = [
     "BoundaryCodec",
@@ -30,4 +30,5 @@ __all__ = [
     "register_codec",
     "HuffmanCodec",
     "BitpackCodec",
+    "PerChannelCodec",
 ]

@@ -28,6 +28,7 @@ from repro_torch.codec.base import (
 from repro_torch.core import entropy as ent
 from repro_torch.core import quantization as q
 from repro_torch.device import resolve_device
+from repro_torch.kernels.counters import bump
 from repro_torch.kernels.entropy import ops as eops
 from repro_torch.kernels.quantize import (
     dequantize_codes,
@@ -53,7 +54,7 @@ class HuffmanCodec(BoundaryCodec):
 
     def _encode_host(self, x: torch.Tensor, bits: int) -> WireBlob:
         """Host route: quantize, copy all codes, numpy bitstream build."""
-        eops.HOST_ROUTES += 1
+        bump("huffman_host_route")
         quantized = q.quantize(x, bits)
         payload = ent.huffman_encode(quantized.values.cpu().numpy(),
                                      1 << bits)

@@ -210,9 +210,7 @@ class JaladConfig:
     # Boundary codecs the ILP may choose between (registry ids from
     # ``repro_torch.codec``). The decision variable is the full (point, bits,
     # codec) triple — the wire format is part of the split decision.
-    # ``perchannel`` is not ported yet, so the port's default grid is the
-    # two per-tensor codecs.
-    codec_choices: Tuple[str, ...] = ("huffman", "bitpack")
+    codec_choices: Tuple[str, ...] = ("huffman", "bitpack", "perchannel")
     accuracy_drop_budget: float = 0.10       # Δα
     bandwidth_bytes_per_s: float = 1e6       # BW (1 MB/s default, paper)
     edge: DeviceProfile = EDGE_TX2

@@ -9,10 +9,15 @@ The paper's step conversion maps the float feature map affinely into
 so the codes are bit-identical. The dequantize ``q * step + min`` must
 round ONCE, as the reference's jitted decode (and the CUDA decode kernel's
 ``fmaf``) does; :func:`fma_f32` gives that on any device.
+
+``axis=`` selects per-channel ranges (beyond the paper: tighter ranges,
+lower error at the same width), the value transform of the ``perchannel``
+codec. :func:`pack_bits` / :func:`unpack_bits` are the reference's dense
+c-bit packing, the oracle of the per-channel kernels' word layout.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -22,7 +27,7 @@ class Quantized(NamedTuple):
     """Quantized feature map + the affine range needed to invert."""
 
     values: torch.Tensor    # integer codes, same shape as input (int32)
-    x_min: torch.Tensor     # 0-d tensors: the per-tensor range
+    x_min: torch.Tensor     # per-tensor 0-d tensor or per-channel vector
     x_max: torch.Tensor
     bits: int
 
@@ -70,22 +75,96 @@ def dequant_step(mn: torch.Tensor, mx: torch.Tensor, bits: int
     return (mx - mn) * torch.full_like(mn, recip)
 
 
-def quantize(x: torch.Tensor, bits: int) -> Quantized:
-    """The paper's per-tensor min-max step quantization."""
+def _channel_view(v: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
+    """A (C,) range vector shaped to broadcast along ``axis``."""
+    shape = [1] * ndim
+    shape[axis] = v.shape[0]
+    return v.reshape(shape)
+
+
+def quantize(x: torch.Tensor, bits: int, axis: Optional[int] = None
+             ) -> Quantized:
+    """Min-max step quantization: the paper's per-tensor version, or
+    per-channel statistics along ``axis``."""
     xf = x.to(torch.float32)
-    mn = xf.amin()
-    mx = xf.amax()
+    if axis is None:
+        x_min = mn = xf.amin()
+        x_max = mx = xf.amax()
+    else:
+        reduce = tuple(i for i in range(x.ndim) if i != axis)
+        # ``amin(dim=())`` would reduce every dim; a 1-D tensor's channels
+        # are its elements.
+        x_min = xf.amin(dim=reduce) if reduce else xf
+        x_max = xf.amax(dim=reduce) if reduce else xf
+        mn = _channel_view(x_min, x.ndim, axis)
+        mx = _channel_view(x_max, x.ndim, axis)
     scale = affine_scale(mn, mx, bits)
     q = torch.clamp(torch.round((xf - mn) * scale), 0, (1 << bits) - 1)
-    return Quantized(q.to(torch.int32), mn, mx, bits)
+    return Quantized(q.to(torch.int32), x_min, x_max, bits)
 
 
-def dequantize(q: Quantized, dtype=torch.float32) -> torch.Tensor:
-    step = dequant_step(q.x_min, q.x_max, q.bits)
-    return fma_f32(q.values.to(torch.float32), step, q.x_min).to(dtype)
+def dequantize(q: Quantized, dtype=torch.float32, axis: Optional[int] = None
+               ) -> torch.Tensor:
+    mn, mx = q.x_min, q.x_max
+    if mn.ndim:
+        ax = axis if axis is not None else 0
+        mn = _channel_view(mn, q.values.ndim, ax)
+        mx = _channel_view(mx, q.values.ndim, ax)
+    step = dequant_step(mn, mx, q.bits)
+    return fma_f32(q.values.to(torch.float32), step, mn).to(dtype)
 
 
-def quantize_dequantize(x: torch.Tensor, bits: int) -> torch.Tensor:
+def quantize_dequantize(x: torch.Tensor, bits: int,
+                        axis: Optional[int] = None) -> torch.Tensor:
     """Straight-through simulation of the edge->cloud quantization (the
     path used inside calibration)."""
-    return dequantize(quantize(x, bits), x.dtype)
+    return dequantize(quantize(x, bits, axis), x.dtype, axis)
+
+
+def quantization_mse(x: torch.Tensor, bits: int) -> torch.Tensor:
+    xq = quantize_dequantize(x, bits)
+    return torch.mean(torch.square(x.to(torch.float32)
+                                   - xq.to(torch.float32)))
+
+
+# ---------------------------------------------------------------------------
+# Bit packing: c-bit codes -> dense 32-bit words, ``32 // bits`` codes per
+# word, code k at bit ``k * bits`` (codes never straddle a word, so
+# non-power-of-two widths leave ``32 % bits`` high bits 0). Words are
+# int32 tensors holding the u32 bit patterns.
+# ---------------------------------------------------------------------------
+
+
+def u32_as_i32(w: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors of the same bits."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def pack_bits(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack int codes (< 2^bits) along the last dim into words, padded to
+    whole words: (..., n) -> (..., ceil(n / (32 // bits))). A 1-D input is
+    the reference's flat packing."""
+    if not 1 <= bits <= 16:
+        raise ValueError(f"bits must be in [1,16], got {bits}")
+    per_word = 32 // bits
+    q = codes.to(torch.int64)
+    q = torch.nn.functional.pad(q, (0, (-q.shape[-1]) % per_word))
+    shifts = torch.arange(per_word, device=q.device) * bits
+    # The codes occupy disjoint bits, so the sum is their OR.
+    words = (q.reshape(q.shape[:-1] + (-1, per_word)) << shifts).sum(dim=-1)
+    return u32_as_i32(words)
+
+
+def unpack_bits(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: (..., W) words -> (..., n) int32."""
+    per_word = 32 // bits
+    shifts = torch.arange(per_word, device=words.device) * bits
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    codes = (w[..., None] >> shifts) & ((1 << bits) - 1)
+    return codes.reshape(words.shape[:-1] + (-1,))[..., :n].to(torch.int32)
+
+
+def packed_size_bytes(num_values: int, bits: int) -> int:
+    """Size of the bit-packed codes plus the 8-byte (min, max) header."""
+    per_word = 32 // bits
+    return (num_values + per_word - 1) // per_word * 4 + 8

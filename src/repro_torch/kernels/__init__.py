@@ -2,6 +2,9 @@
 its plain PyTorch version on CPU tensors and launches the kernel on CUDA
 tensors (``build.py`` compiles ``csrc/`` with ``nvcc`` at first use).
 
-* ``quantize`` — K1 fused encode, K2 fused decode (``csrc/quantize.cu``).
+* ``quantize`` — K1 fused encode, K2 fused decode (``csrc/quantize.cu``);
+  K4 per-channel encode, K5 per-channel decode (``csrc/perchannel.cu``).
 * ``entropy``  — the batched Huffman encode and K3 (``csrc/huffman_pack.cu``).
+
+``counters`` holds every wrapper's launch count.
 """

@@ -18,8 +18,9 @@ Routing is the reference's, kept exactly: a sample with a code longer than
 ``PACK_MAX_CODE_BITS`` or a stream past ``_MAX_TOTAL_BITS`` (and a batch
 whose padded word grid passes it) makes :func:`huffman_encode_batch_device`
 return ``None``, and the codec encodes on the host instead. That is a
-semantic route of the codec, not a kernel fallback; ``HOST_ROUTES`` counts
-it. ``PACK_LAUNCHES`` counts K3's CUDA kernel launches (three per call).
+semantic route of the codec, not a kernel fallback; the
+``huffman_host_route`` counter counts it. ``huffman_pack`` counts K3's CUDA
+kernel launches (three per call).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 from repro_torch.core import entropy as ent
 from repro_torch.core.quantization import affine_scale
 from repro_torch.kernels import build
+from repro_torch.kernels.counters import bump
 
 # A code may span at most two u32 words in the emission.
 PACK_MAX_CODE_BITS = 32
@@ -39,9 +41,6 @@ PACK_MAX_CODE_BITS = 32
 _MAX_TOTAL_BITS = (1 << 31) - 1
 # Word-grid width quantum of the reference (its routing check depends on it).
 _LANES = 128
-
-PACK_LAUNCHES = 0
-HOST_ROUTES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +138,6 @@ def huffman_pack(xb: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
     """K3 on a (B, n) stack with per-sample (mn, scale), (B, 2^c) int32
     code tables (u32 bit patterns) and (B, 2^c) u8 length tables (<= 32):
     (B, w_words) int32 words. CPU tensors run :func:`huffman_pack_ref`."""
-    global PACK_LAUNCHES
     if xb.device.type == "cpu":
         return huffman_pack_ref(xb, mn, scale, code_lut, len_lut, bits,
                                 w_words)
@@ -178,7 +176,7 @@ def huffman_pack(xb: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
                 ctypes.c_void_p(words.data_ptr()), w_words,
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     build.check(status, "huffman_pack")
-    PACK_LAUNCHES += 3
+    bump("huffman_pack", 3)
     return words
 
 

@@ -1,5 +1,6 @@
 """Boundary-codec quantize kernels: K1 (fused encode) and K2 (fused
-decode), with their plain PyTorch versions in ``ref.py``."""
+decode) per tensor, K4 and K5 per channel, with their plain PyTorch
+versions in ``ref.py``."""
 from repro_torch.kernels.quantize.ops import (
     count_launches,
     dequantize_codes,
@@ -7,6 +8,12 @@ from repro_torch.kernels.quantize.ops import (
     dequantize_wire,
     dequantize_wire_batch,
     launch_counts,
+    perchannel_decode,
+    perchannel_decode_batch,
+    perchannel_encode,
+    perchannel_encode_batch,
+    perchannel_encode_stack,
+    perchannel_words,
     quantize_pack,
     quantize_pack_batch,
     quantize_pack_stack,
@@ -20,6 +27,12 @@ __all__ = [
     "dequantize_wire",
     "dequantize_wire_batch",
     "launch_counts",
+    "perchannel_decode",
+    "perchannel_decode_batch",
+    "perchannel_encode",
+    "perchannel_encode_batch",
+    "perchannel_encode_stack",
+    "perchannel_words",
     "quantize_pack",
     "quantize_pack_batch",
     "quantize_pack_stack",

@@ -1,17 +1,22 @@
-"""Public wrappers of the quantize kernels K1 (encode) and K2 (decode).
+"""Public wrappers of the quantize kernels: K1 (encode) and K2 (decode)
+per tensor, K4 (encode) and K5 (decode) per channel.
 
 Dispatch rule, the same for every kernel wrapper of the port: a CPU tensor
 runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor launches the
-hand-written kernel of ``csrc/quantize.cu`` or raises. There is no
-fallback from one to the other.
+hand-written kernel of ``csrc/quantize.cu`` / ``csrc/perchannel.cu`` or
+raises. There is no fallback from one to the other.
 
-Codes are the flat *wire* layout, per sample: two codes per byte for
-bits <= 4 (``(n + 1) // 2`` bytes), one u8 per element for bits <= 8, one
-u16 per element above. These are exactly the bytes the reference's bitpack
-codec ships after trimming its TPU tile padding.
+Per-tensor codes are the flat *wire* layout, per sample: two codes per
+byte for bits <= 4 (``(n + 1) // 2`` bytes), one u8 per element for
+bits <= 8, one u16 per element above. These are exactly the bytes the
+reference's bitpack codec ships after trimming its TPU tile padding.
+Per-channel words are (B, C, W) int32 tensors holding the u32 words of the
+reference's channel-major wire layout, exactly ``W = ceil(L / (32 //
+bits))`` per channel.
 
-``ENCODE_LAUNCHES`` / ``DECODE_LAUNCHES`` count CUDA kernel launches (K1
-is two launches: range reduction, then quantize + pack).
+The launch counters (:mod:`repro_torch.kernels.counters`) count CUDA
+kernel launches: K1 is two (range reduction, then quantize + pack), K2,
+K4 and K5 one each.
 """
 from __future__ import annotations
 
@@ -24,11 +29,19 @@ import torch
 
 from repro_torch.core.quantization import dequant_step
 from repro_torch.kernels import build
+from repro_torch.kernels.counters import (  # noqa: F401  (re-exported)
+    bump,
+    count_launches,
+    launch_counts,
+    reset_launch_counts,
+)
 from repro_torch.kernels.quantize import ref
-from repro_torch.kernels.quantize.ref import code_dtype, wire_len
-
-ENCODE_LAUNCHES = 0
-DECODE_LAUNCHES = 0
+from repro_torch.kernels.quantize.ref import (
+    channel_dims,
+    code_dtype,
+    perchannel_words,
+    wire_len,
+)
 
 _THREADS = 256
 # Blocks in flight across the card (132 SMs x 8 resident 256-thread blocks).
@@ -50,14 +63,19 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(build.load("quantize"), name)
+def _fn(lib: str, name: str, argtypes):
+    fn = getattr(build.load(lib), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _check_bits(bits: int) -> None:
+    if not 1 <= bits <= 16:
+        raise ValueError(f"bits must be in [1, 16], got {bits}")
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
@@ -69,9 +87,7 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
 def fused_encode(xb: torch.Tensor, bits: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on a (B, n) stack, n >= 1: (codes (B, wire_len), mn (B,), mx (B,))."""
-    global ENCODE_LAUNCHES
-    if not 1 <= bits <= 16:
-        raise ValueError(f"bits must be in [1, 16], got {bits}")
+    _check_bits(bits)
     if xb.device.type == "cpu":
         return ref.fused_encode_ref(xb, bits)
     _check_cuda(xb, "fused_encode")
@@ -88,13 +104,13 @@ def fused_encode(xb: torch.Tensor, bits: int
     mn = torch.empty((bsz,), dtype=torch.float32, device=dev)
     mx = torch.empty_like(mn)
     codes = torch.empty((bsz, out_n), dtype=code_dtype(bits), device=dev)
-    fn = _fn("jalad_fused_encode",
+    fn = _fn("quantize", "jalad_fused_encode",
              [_P, _I, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _L, _P])
     status = fn(_ptr(xb), int(xb.dtype == torch.bfloat16), bsz, n, bits,
                 _ptr(pmin), _ptr(pmax), parts, blocks, _ptr(mn), _ptr(mx),
                 _ptr(codes), out_n, _stream())
     build.check(status, "fused_encode")
-    ENCODE_LAUNCHES += 2
+    bump("fused_encode", 2)
     return codes, mn, mx
 
 
@@ -104,7 +120,6 @@ def fused_decode(codes: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
     """K2 on a (B, W) code stack: (B, n) ``out_dtype`` activations. The
     step is computed here in float32, outside the kernel, as the reference
     does (:func:`repro_torch.core.quantization.dequant_step`)."""
-    global DECODE_LAUNCHES
     mn = mn.to(torch.float32)
     step = dequant_step(mn, mx.to(torch.float32), bits)
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -126,13 +141,13 @@ def fused_decode(codes: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
                          f"hold {n} elements, or ranges are not ({bsz},)")
     out = torch.empty((bsz, n), dtype=out_dtype, device=codes.device)
     mode = 0 if packed else (1 if bits <= 8 else 2)
-    fn = _fn("jalad_fused_decode",
+    fn = _fn("quantize", "jalad_fused_decode",
              [_P, _I, _I, _L, _L, _P, _P, _P, _I, _I, _P])
     status = fn(_ptr(codes), mode, bsz, in_n, n, _ptr(mn), _ptr(step),
                 _ptr(out), int(out_dtype == torch.bfloat16),
                 _grid(n, bsz), _stream())
     build.check(status, "fused_decode")
-    DECODE_LAUNCHES += 1
+    bump("fused_decode")
     return out
 
 
@@ -172,10 +187,12 @@ def quantize_pack_stack(xs: Sequence[torch.Tensor], bits: int):
 # ---------------------------------------------------------------------------
 
 
-def _ranges(v, bsz: int, device) -> torch.Tensor:
+def _ranges(v, shape, device) -> torch.Tensor:
+    """Range header(s) ``v`` (tensor or numpy) as a float32 tensor of
+    ``shape`` on ``device``."""
     if isinstance(v, torch.Tensor):
-        return v.to(device=device, dtype=torch.float32).reshape(bsz)
-    return torch.as_tensor(np.asarray(v, np.float32).reshape(bsz),
+        return v.to(device=device, dtype=torch.float32).reshape(shape)
+    return torch.as_tensor(np.array(v, np.float32).reshape(shape),
                            device=device)
 
 
@@ -226,39 +243,113 @@ def dequantize_codes(codes: torch.Tensor, mn, mx, bits: int, shape,
 
 
 # ---------------------------------------------------------------------------
-# Launch accounting
+# Per-channel codec: K4 encode, K5 decode
 # ---------------------------------------------------------------------------
 
 
-def launch_counts() -> Dict[str, int]:
-    from repro_torch.kernels.entropy import ops as eops
-
-    return {"fused_encode": ENCODE_LAUNCHES,
-            "fused_decode": DECODE_LAUNCHES,
-            "huffman_pack": eops.PACK_LAUNCHES,
-            "huffman_host_route": eops.HOST_ROUTES}
+def _pc_threads(length: int) -> int:
+    """K4's block: about 8 elements a thread, a multiple of 32, <= 1024."""
+    return min(1024, max(32, -(-length // (8 * 32)) * 32))
 
 
-def reset_launch_counts() -> None:
-    global ENCODE_LAUNCHES, DECODE_LAUNCHES
-    from repro_torch.kernels.entropy import ops as eops
+def pc_encode(xb: torch.Tensor, bits: int, axis: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 on a (B, *shape) stack with the channel on ``axis`` of the
+    sample shape: (words (B, C, W) int32, mn (B, C), mx (B, C))."""
+    _check_bits(bits)
+    if xb.device.type == "cpu":
+        return ref.pc_encode_ref(xb, bits, axis)
+    _check_cuda(xb, "pc_encode")
+    bsz = xb.shape[0]
+    outer, c, inner = channel_dims(xb.shape[1:], axis)
+    length = outer * inner
+    if length == 0 or c == 0 or length * c >= 1 << 31:
+        raise ValueError(f"pc_encode: channel length {length} x {c} "
+                         "channels must be in [1, 2^31)")
+    xb = xb.to(torch.float32).contiguous()
+    n_words = perchannel_words(length, bits)
+    dev = xb.device
+    words = torch.empty((bsz, c, n_words), dtype=torch.int32, device=dev)
+    mn = torch.empty((bsz, c), dtype=torch.float32, device=dev)
+    mx = torch.empty_like(mn)
+    fn = _fn("perchannel", "jalad_pc_encode",
+             [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P])
+    status = fn(_ptr(xb), bsz, outer, c, inner, bits, _ptr(mn), _ptr(mx),
+                _ptr(words), n_words, _pc_threads(length), _stream())
+    build.check(status, "pc_encode")
+    bump("pc_encode")
+    return words, mn, mx
 
-    ENCODE_LAUNCHES = DECODE_LAUNCHES = 0
-    eops.PACK_LAUNCHES = eops.HOST_ROUTES = 0
+
+def pc_decode(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+              bits: int, shape, axis: int,
+              out_dtype=torch.float32) -> torch.Tensor:
+    """K5: (B, C, W) words + (B, C) ranges -> (B, *shape) ``out_dtype``.
+    The step is computed here in float32, outside the kernel, as the
+    reference does (:func:`repro_torch.core.quantization.dequant_step`)."""
+    _check_bits(bits)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+    shape = tuple(int(s) for s in shape)
+    if words.device.type == "cpu":
+        return ref.pc_decode_ref(words, mn, mx, bits, shape, axis, out_dtype)
+    _check_cuda(words, "pc_decode")
+    bsz, c, n_words = words.shape
+    outer, c_shape, inner = channel_dims(shape, axis)
+    n = outer * c * inner
+    if (words.dtype != torch.int32 or c_shape != c
+            or n_words != perchannel_words(outer * inner, bits)
+            or tuple(mn.shape) != (bsz, c) or tuple(mx.shape) != (bsz, c)
+            or n == 0 or n >= 1 << 31):
+        raise ValueError(f"pc_decode: words {tuple(words.shape)} "
+                         f"{words.dtype} and ranges {tuple(mn.shape)} do not "
+                         f"match shape {shape} at {bits} bits")
+    words = words.contiguous()
+    mn = mn.to(torch.float32).contiguous()
+    step = dequant_step(mn, mx.to(torch.float32), bits).contiguous()
+    out = torch.empty((bsz,) + shape, dtype=out_dtype, device=words.device)
+    fn = _fn("perchannel", "jalad_pc_decode",
+             [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P])
+    status = fn(_ptr(words), bsz, outer, c, inner, bits, n_words, _ptr(mn),
+                _ptr(step), _ptr(out), int(out_dtype == torch.bfloat16),
+                _grid(n, bsz), _stream())
+    build.check(status, "pc_decode")
+    bump("pc_decode")
+    return out
 
 
-@contextlib.contextmanager
-def count_launches():
-    """Counts of kernel launches (and host Huffman routes) made inside the
-    block: ``box.counts`` maps each counter to its increase."""
+# The per-channel edge encode of a (B, *shape) stack is one K4 launch; each
+# sample's words and ranges are identical to encoding it alone.
+perchannel_encode_batch = pc_encode
 
-    class _Box:
-        counts: Dict[str, int] = {}
 
-    box = _Box()
-    start = launch_counts()
-    try:
-        yield box
-    finally:
-        end = launch_counts()
-        box.counts = {k: end[k] - start[k] for k in end}
+def perchannel_encode_stack(xs: Sequence[torch.Tensor], bits: int,
+                            axis: int):
+    """:func:`perchannel_encode_batch` over a sequence of same-shape
+    tensors."""
+    return perchannel_encode_batch(torch.stack(list(xs)), bits, axis)
+
+
+def perchannel_encode(x: torch.Tensor, bits: int, axis: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One tensor -> (words (C, W), mn (C,), mx (C,))."""
+    words, mn, mx = perchannel_encode_batch(x[None], bits, axis)
+    return words[0], mn[0], mx[0]
+
+
+def perchannel_decode_batch(words3: torch.Tensor, mn2, mx2, bits: int,
+                            shape, axis: int,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """Cloud half, batched: (B, C, W) words + (B, C) ranges -> (B, *shape)
+    in one K5 launch."""
+    bc, dev = words3.shape[:2], words3.device
+    return pc_decode(words3, _ranges(mn2, bc, dev), _ranges(mx2, bc, dev),
+                     bits, shape, axis, out_dtype)
+
+
+def perchannel_decode(words2: torch.Tensor, mn, mx, bits: int, shape,
+                      axis: int, out_dtype=torch.float32) -> torch.Tensor:
+    """Single-tensor per-channel decode."""
+    return perchannel_decode_batch(words2[None], mn, mx, bits, shape, axis,
+                                   out_dtype)[0]

@@ -1,18 +1,27 @@
-"""Plain PyTorch versions of the quantize kernels K1 and K2.
+"""Plain PyTorch versions of the quantize kernels K1, K2 (per-tensor) and
+K4, K5 (per-channel).
 
-They compute exactly what ``csrc/quantize.cu`` computes, on any device:
-the wrappers in :mod:`repro_torch.kernels.quantize.ops` run them for CPU
-tensors, the CPU tests hold them byte- and bit-identical to the reference
-kernels, and ``chip_smoke.py`` holds the CUDA kernels against them on the
-card. Nothing on the main path calls them when a card is present.
+They compute exactly what ``csrc/quantize.cu`` and ``csrc/perchannel.cu``
+compute, on any device: the wrappers in
+:mod:`repro_torch.kernels.quantize.ops` run them for CPU tensors, the CPU
+tests hold them byte- and bit-identical to the reference kernels, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card. Nothing
+on the main path calls them when a card is present.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.quantization import affine_scale, fma_f32
+from repro_torch.core.quantization import (
+    affine_scale,
+    dequant_step,
+    fma_f32,
+    pack_bits,
+    unpack_bits,
+)
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -63,3 +72,60 @@ def fused_decode_ref(codes: torch.Tensor, mn: torch.Tensor,
         q = codes[:, :n]
     q = q.to(torch.int32).to(torch.float32)
     return fma_f32(q, step[:, None], mn[:, None]).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Per-channel: K4 encode, K5 decode
+# ---------------------------------------------------------------------------
+
+
+def channel_dims(shape: Sequence[int], axis: int) -> Tuple[int, int, int]:
+    """(outer, C, inner) of a sample shape around its channel ``axis``:
+    channel c's element ``l = o * inner + i`` sits at flat offset
+    ``o * C * inner + c * inner + i``."""
+    shape = tuple(int(s) for s in shape)
+    return (int(np.prod(shape[:axis])), shape[axis],
+            int(np.prod(shape[axis + 1:])))
+
+
+def perchannel_words(length: int, bits: int) -> int:
+    """u32 words per channel on the wire: ``32 // bits`` codes per word,
+    codes never straddle a word and channels never share one."""
+    per_word = 32 // bits
+    return (length + per_word - 1) // per_word
+
+
+def pc_encode_ref(xb: torch.Tensor, bits: int, axis: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: (B, *shape) float -> (words (B, C, W) int32 holding u32 bit
+    patterns, mn (B, C), mx (B, C)).
+
+    Per-(sample, channel) min/max, ``clip(round((x - mn) * scale), 0,
+    2^c - 1)``, then :func:`pack_bits` along each channel: codes past the
+    channel's length L are 0 and channels never share a word."""
+    bsz = xb.shape[0]
+    outer, c, inner = channel_dims(xb.shape[1:], axis)
+    xc = (xb.to(torch.float32).reshape(bsz, outer, c, inner)
+          .transpose(1, 2).reshape(bsz, c, outer * inner))
+    mn = xc.amin(dim=2)
+    mx = xc.amax(dim=2)
+    scale = affine_scale(mn, mx, bits)
+    q = torch.clamp(torch.round((xc - mn[..., None]) * scale[..., None]),
+                    0, (1 << bits) - 1)
+    return pack_bits(q, bits), mn, mx
+
+
+def pc_decode_ref(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+                  bits: int, shape: Sequence[int], axis: int,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """K5: the inverse of K4. (B, C, W) words + (B, C) ranges -> (B,
+    *shape) ``out_dtype``; ``codes * step + mn`` rounds once, like
+    ``fmaf``, with ``step`` = :func:`dequant_step` per channel."""
+    bsz, c, _ = words.shape
+    outer, _, inner = channel_dims(shape, axis)
+    codes = unpack_bits(words, bits, outer * inner)
+    mn = mn.to(torch.float32)
+    step = dequant_step(mn, mx.to(torch.float32), bits)
+    out = fma_f32(codes.to(torch.float32), step[..., None], mn[..., None])
+    out = out.to(out_dtype).reshape(bsz, c, outer, inner).transpose(1, 2)
+    return out.reshape((bsz,) + tuple(int(s) for s in shape))

@@ -1,13 +1,16 @@
-"""Serving launcher of the port: synchronous JALAD edge-cloud serving of
-the CNN testbed, on the CUDA card unless ``--device cpu`` is given.
+"""Serving launcher of the port: JALAD edge-cloud serving of the CNN
+testbed, synchronous or pipelined, on the CUDA card unless ``--device cpu``
+is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --jalad --codec huffman --bandwidth 300e3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
+      --jalad --pipeline --codec auto --requests 16   # overlapped stages
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --reduced --jalad --device cpu       # small CPU run
 
-The pipelined (``--pipeline``), continuous-batching (``--continuous``) and
-LM paths are not ported yet and raise.
+The continuous-batching (``--continuous``) and LM paths are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -39,12 +42,14 @@ def serve_jalad(args) -> int:
                      accuracy_drop_budget=args.acc_drop,
                      codec_choices=codecs)
     t0 = time.perf_counter()
-    server, _ = build_edge_cloud_server(
+    server, params = build_edge_cloud_server(
         cfg, jc, seed=args.seed, calib_batches=args.calib,
         calib_batch_size=args.batch,
         tables_cache_dir=args.tables_cache or None, device=device)
     log.info("server ready on %s in %.2fs (tables cache: %s)", device,
              time.perf_counter() - t0, args.tables_cache or "disabled")
+    if args.pipeline:
+        return _serve_jalad_pipelined(args, server, params)
     batch = make_batch(cfg, args.batch, 64, seed=args.seed + 1)
     for i in range(args.requests):
         _, lat = server.serve_batch(batch, bandwidth=args.bandwidth)
@@ -57,6 +62,42 @@ def serve_jalad(args) -> int:
     return 0
 
 
+def _serve_jalad_pipelined(args, server, params) -> int:
+    """Overlapped edge/link/cloud serving of a request stream."""
+    from repro_torch.serving.pipeline import (
+        PipelinedEdgeCloudServer,
+        PipelineRequest,
+    )
+
+    pipe = PipelinedEdgeCloudServer(server.engine, params,
+                                    controller=server.controller)
+    cfg = server.engine.model.cfg
+    reqs = [PipelineRequest(uid=i,
+                            batch=make_batch(cfg, args.batch, 64,
+                                             seed=args.seed + 1 + i),
+                            bandwidth=args.bandwidth)
+            for i in range(args.requests)]
+    t0 = time.perf_counter()
+    done = pipe.serve(reqs)
+    wall = time.perf_counter() - t0
+    for req in done:
+        tl = req.timeline
+        log.info(
+            "req %d: point=%d bits=%d codec=%s edge=[%.1f,%.1f]ms "
+            "xfer=[%.1f,%.1f]ms cloud=[%.1f,%.1f]ms lat=%.1fms", req.uid,
+            tl.plan_point, tl.plan_bits, tl.plan_codec,
+            tl.edge_start * 1e3, tl.edge_end * 1e3,
+            tl.xfer_start * 1e3, tl.xfer_end * 1e3, tl.cloud_start * 1e3,
+            tl.cloud_end * 1e3, tl.latency_s * 1e3,
+        )
+    log.info("pipelined makespan %.1fms vs synchronous %.1fms (%.2fx); "
+             "wall %.1fms", pipe.makespan_s * 1e3,
+             pipe.synchronous_time_s() * 1e3,
+             pipe.synchronous_time_s() / max(pipe.makespan_s, 1e-12),
+             wall * 1e3)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
@@ -64,7 +105,7 @@ def main(argv=None) -> int:
     ap.add_argument("--jalad", action="store_true",
                     help="JALAD edge-cloud decoupled mode (CNN testbed)")
     ap.add_argument("--pipeline", action="store_true",
-                    help="overlapped edge/link/cloud stages (not yet ported)")
+                    help="overlap edge/link/cloud stages (with --jalad)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching LM scheduler (not yet ported)")
     ap.add_argument("--device", default=None,
@@ -73,8 +114,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bandwidth", type=float, default=1e6)
     ap.add_argument("--codec", default="auto",
                     help="boundary codec for --jalad: a registry id "
-                         "(huffman|bitpack) or 'auto' to let the planner "
-                         "choose among all registered codecs")
+                         "(huffman|bitpack|perchannel) or 'auto' to let the "
+                         "planner choose among all registered codecs")
     ap.add_argument("--tables-cache", default="",
                     help="directory for config-hashed predictor tables "
                          "(empty = always recalibrate)")
@@ -85,10 +126,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
-    if args.pipeline or args.continuous or not args.jalad:
+    if args.continuous or not args.jalad:
         raise NotImplementedError(
-            "repro_torch: only the synchronous --jalad path is ported yet "
-            "(--pipeline, --continuous and the LM paths are not)")
+            "repro_torch: only the --jalad paths are ported yet "
+            "(--continuous and the LM paths are not)")
     return serve_jalad(args)
 
 

@@ -2,7 +2,8 @@
 
 A blob encoded by the reference decodes in the port (bit-identical to the
 reference's own decode) and a blob encoded by the port decodes in the
-reference, for both ported codecs. The calibration hooks (``simulate``,
+reference, for the per-tensor codecs (``perchannel`` has its own file,
+``test_torch_perchannel.py``). The calibration hooks (``simulate``,
 ``transfer_size_batch``) agree on identical boundary tensors.
 """
 import numpy as np
@@ -39,9 +40,10 @@ def _as(cls, blob):
 
 
 def test_registry_has_the_ported_codecs_only():
-    assert list_codecs() == ["bitpack", "huffman"]
+    assert list_codecs() == ["bitpack", "huffman", "perchannel"]
+    assert tget("perchannel").value_key == "channel"
     with pytest.raises(KeyError):
-        tget("perchannel")
+        tget("png")
 
 
 @pytest.mark.parametrize("codec", CODECS)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1, K2 and K3 against their plain PyTorch
-versions, on the card. Every test here carries ``requires_cuda`` and skips
+"""The port's CUDA kernels K1-K5 against their plain PyTorch versions, on
+the card. Every test here carries ``requires_cuda`` and skips
 without a card. The file imports neither JAX nor the reference package
 (the plain versions are pinned to the reference by the other
 ``test_torch_*`` files), so it also runs where only PyTorch is installed:
@@ -119,3 +119,43 @@ def test_huffman_payloads_match_cpu_and_host_encoder(cuda):
             back = codec.decode(blob, device=cuda)
             assert torch.equal(back.cpu(),
                                codec.decode(blob, device="cpu"))
+
+
+PC_CASES = [((4, 64, 112, 112), 1), ((4, 2048, 7, 7), 1), ((4, 2048), 1),
+            ((1, 3, 37, 41), 1), ((2, 3, 7), 2), ((5, 1), 0)]
+
+
+@pytest.mark.parametrize("bits", (1, 2, 3, 4, 5, 6, 8, 12, 16))
+def test_perchannel_encode_decode_match_plain(cuda, bits):
+    for shape, axis in PC_CASES:
+        xb = torch.relu(torch.randn((2,) + shape, device=cuda))
+        with qops.count_launches() as box:
+            words, mn, mx = qops.pc_encode(xb, bits, axis)
+        assert box.counts["pc_encode"] == 1
+        pw, pmn, pmx = qref.pc_encode_ref(xb, bits, axis)
+        assert torch.equal(words, pw)
+        assert torch.equal(mn, pmn) and torch.equal(mx, pmx)
+        for dt, view in ((torch.float32, torch.int32),
+                         (torch.bfloat16, torch.int16)):
+            with qops.count_launches() as box:
+                got = qops.pc_decode(words, mn, mx, bits, shape, axis, dt)
+            assert box.counts["pc_decode"] == 1
+            want = qref.pc_decode_ref(words, mn, mx, bits, shape, axis, dt)
+            assert torch.equal(got.view(view), want.view(view))
+        one, mn1, _ = qops.perchannel_encode(xb[1], bits, axis)
+        assert torch.equal(one, words[1]) and torch.equal(mn1, mn[1])
+    torch.cuda.synchronize()
+
+
+def test_perchannel_codec_matches_cpu(cuda):
+    codec = get_codec("perchannel")
+    xs = [torch.from_numpy(_features((4, 16, 9, 9), seed=s))
+          for s in range(3)]
+    for bits in (3, 8, 12):
+        blobs = codec.encode_batch([x.to(cuda) for x in xs], bits)
+        for x, blob in zip(xs, blobs):
+            cpu = codec.encode(x, bits)
+            assert blob.payload == cpu.payload
+            assert np.array_equal(blob.x_min, cpu.x_min)
+            back = codec.decode_batch([blob, blob], device=cuda)[0]
+            assert torch.equal(back.cpu(), codec.decode(cpu, device="cpu"))

@@ -87,13 +87,19 @@ def test_wrappers_never_fall_back_for_other_devices():
         eops.huffman_pack(meta, torch.zeros(1, device="meta"),
                           torch.ones(1, device="meta"), lut,
                           lut.to(torch.uint8), 8, 128)
+    with pytest.raises(ValueError):
+        qops.pc_encode(torch.empty((1, 2, 8), device="meta"), 8, 0)
+    ranges = torch.zeros((1, 2), device="meta")
+    with pytest.raises(ValueError):
+        qops.pc_decode(torch.empty((1, 2, 2), dtype=torch.int32,
+                                   device="meta"),
+                       ranges, ranges, 8, (2, 8), 0)
 
 
 def test_unported_serve_modes_raise():
     from repro_torch.launch.serve import main
 
-    for argv in (["--arch", "resnet50", "--jalad", "--pipeline"],
-                 ["--arch", "olmo-1b", "--continuous"],
+    for argv in (["--arch", "olmo-1b", "--continuous"],
                  ["--arch", "resnet50"]):
         with pytest.raises(NotImplementedError):
             main(argv)
@@ -107,3 +113,15 @@ def test_serve_cli_runs_on_the_cpu(caplog):
                      "cpu", "--calib", "1", "--batch", "2", "--requests",
                      "2", "--codec", "bitpack"]) == 0
     assert "codec=bitpack" in caplog.text or "codec=png" in caplog.text
+
+
+def test_pipelined_serve_cli_runs_on_the_cpu(caplog):
+    from repro_torch.launch.serve import main
+
+    with caplog.at_level("INFO"):
+        assert main(["--arch", "resnet50", "--reduced", "--jalad",
+                     "--pipeline", "--device", "cpu", "--calib", "1",
+                     "--batch", "2", "--requests", "3", "--codec",
+                     "auto"]) == 0
+    assert caplog.text.count(" point=") == 3
+    assert "pipelined makespan" in caplog.text

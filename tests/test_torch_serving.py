@@ -41,7 +41,7 @@ from conftest import reduced_model  # noqa: E402
 
 POINTS = [0, 1, 4, 9, 17, 18, 19]
 BITS = (2, 4, 8)
-CODECS = ("huffman", "bitpack")
+CODECS = ("huffman", "bitpack", "perchannel")
 BATCH = 4
 TRACE = [3e4, 3e5, 3e6, 3e7, 3e8, 3e9, 3e5, 1e4]
 
@@ -112,7 +112,8 @@ def test_decide_matches_reference_bitwise(shared):
                                   jeng.plan_space.base)
 
 
-@pytest.mark.parametrize("codecs", [CODECS, ("huffman",), ("bitpack",)])
+@pytest.mark.parametrize("codecs", [CODECS, ("huffman",), ("bitpack",),
+                                    ("perchannel",)])
 def test_serve_trace_matches_reference(shared, codecs):
     jmodel, jparams, _, _ = shared
     jeng, teng = _engines(shared, codecs)
@@ -144,9 +145,10 @@ def test_port_calibration_on_the_same_weights(shared):
                       codecs=list(CODECS), points=POINTS)
     assert tt.points == jt.points
     assert tt.acc_drop.shape == jt.acc_drop.shape
-    k = jt.codec_index("bitpack")
-    np.testing.assert_array_equal(tt.size_bytes[:, :, k],
-                                  jt.size_bytes[:, :, k])
+    for fixed_rate in ("bitpack", "perchannel"):
+        k = jt.codec_index(fixed_rate)
+        np.testing.assert_array_equal(tt.size_bytes[:, :, k],
+                                      jt.size_bytes[:, :, k])
     assert ((tt.acc_drop >= 0) & (tt.acc_drop <= 1)).all()
     assert tt.base_accuracy == jt.base_accuracy
 
