@@ -31,7 +31,29 @@ NVIDIA card.
    has finite logits, every micro-batched blob equals the per-request
    encode of its request and plan, and every request's logits equal the
    cloud step of its blob.
-5. Prints a ``{"kernels": [...]}`` line, then, last,
+5. Holds the three-launch encode chain K6a (range partials), K6b
+   (quantize), K6c (nibble pack) against the plain versions at the stem,
+   res5 and odd shapes, each taken as one tensor, in float32 and bfloat16,
+   and on the real ``stem_pool`` boundary of a served request, at 2, 3, 4,
+   8 and 16 bits: partials, codes and packed bytes byte-identical, the
+   chain's ``(codes, mn, mx)`` byte-identical to K1's ``quantize_pack``,
+   exactly 3 launches a call at 4 bits or fewer and 2 above. Then drives
+   ``quantize_pack_threelaunch`` on the served boundary with the counters
+   set to 0 before and read after.
+6. Serves full-width ResNet-50 through the fleet server: D = 4
+   heterogeneous edges (TX2, TK1, a mid and a fast edge) against one shared
+   cloud under a flash-crowd trace (``make_trace``), batch 4 per request,
+   built by ``build_fleet_server`` from the tables step 3 calibrated (so no
+   second calibration), with all three codecs in the tables and with each
+   pinned, counters set to 0 before each run and read after. Fails unless
+   every request has finite logits; each device's breakdowns, clock and
+   log equal a synchronous ``EdgeCloudServer`` over its engine serving the
+   same batches, with equal logits; the scalar path (``vectorized=False``)
+   gives the same plans, timelines, breakdowns and logits; the fused tail
+   agrees within ``FUSED_TAIL_RTOL``; some cloud launch was batched; every
+   decoupled cloud group launched exactly one decode kernel; and a re-plan
+   fired.
+7. Prints a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -41,6 +63,7 @@ to PATH.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -67,10 +90,25 @@ PIPE_STEP = (1e9, 3e5)
 # element that lands that close to a rounding edge moves one quantization
 # step, so the tolerance is a small share of the logits' scale.
 LOGITS_RTOL = 2e-2
+# Three-launch chain (step 5): widths, and the served boundary it encodes.
+K6_BITS = (2, 3, 4, 8, 16)
+K6_POINT = "stem_pool"
+# Fleet (step 6): the four edge profiles and the flash-crowd trace.
+FLEET_TRACE = dict(n_devices=4, n_steps=24, seed=13, kind="flash_crowd",
+                   mean_bps=2e6, flash_bw_drop=16.0)
+# The fused tail runs one forward over a whole cloud group, at another
+# batch size than the per-request tails, so cuDNN may pick other
+# convolution algorithms that sum in another order; the decoded boundary
+# is the same bits on both sides, so only float32 rounding in the tail
+# differs (~1e-6 relative per layer), far inside this share of the scale.
+FUSED_TAIL_RTOL = 1e-3
+# Table file of step 3's calibration, reloaded by build_fleet_server.
+TABLES_DIR = ROOT / "build" / "chip_smoke_tables"
 
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
+K6_KERNELS = ("minmax_blocks", "quantize_blocks", "pack4_blocks")
 
 
 class SmokeFailure(RuntimeError):
@@ -109,22 +147,26 @@ def device_ms(torch, fn, flush, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(torch, fn, reps: int = 20):
+def profiled_ms(torch, fn, reps: int = 20, tries: int = 3):
     """Device time per call from ``torch.profiler``: the sum of every CUDA
     kernel's own time over ``reps`` warm back-to-back calls (no L2 flush,
     no gaps between launches), or None when the profiler sees no device
-    time."""
+    time in any of ``tries`` sessions (a session late in a long run has
+    come back empty on the H100)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0)
-                for e in prof.key_averages())
-    return total / reps / 1e3 if total > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    return None
 
 
 def bound_ms(nbytes: float) -> float:
@@ -404,9 +446,12 @@ def serve_main_path(torch, results):
 
     cfg = get_config("resnet50")
     jc = JaladConfig(codec_choices=CODECS)
+    shutil.rmtree(TABLES_DIR, ignore_errors=True)
+    TABLES_DIR.mkdir(parents=True)
     t0 = time.perf_counter()
     server, params = build_edge_cloud_server(
-        cfg, jc, calib_batches=1, calib_batch_size=4, device="cuda")
+        cfg, jc, calib_batches=1, calib_batch_size=4, device="cuda",
+        tables_cache_dir=str(TABLES_DIR))
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
     print(f"main path: {cfg.arch_id} {cfg.image_size}x{cfg.image_size}x3 -> "
@@ -558,6 +603,282 @@ def serve_pipeline(torch, results, base, params):
     return counts
 
 
+def check_threelaunch_kernels(torch, results, base, params):
+    """Step 5: K6a, K6b, K6c against their plain versions, the chain against
+    K1, then the chain's own path on a served boundary."""
+    from repro_torch.core.quantization import affine_scale
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.models.api import batch_to
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    point = base.model.decoupling_points().index(K6_POINT)
+    with torch.no_grad():
+        served = base.model.run_head(params, batch_to(make_batch(
+            base.model.cfg, 4, 64, seed=300), dev), point).contiguous()
+    inputs = {label: torch.relu(torch.randn(shape, device=dev,
+                                            generator=gen))
+              for label, shape in SHAPES.items()}
+    inputs[K6_POINT] = served
+    rows = []
+    worst = dict.fromkeys(K6_KERNELS, 0.0)
+    for label, x32 in inputs.items():
+        n = x32.numel()
+        for x in (x32, x32.to(torch.bfloat16)):
+            timed = x.dtype == torch.float32 and label in SHAPES
+            esize = x.element_size()
+            pmin, pmax = qops.minmax_blocks(x)
+            rmin, rmax = qref.minmax_blocks_ref(x)
+            worst["minmax_blocks"] = max(
+                worst["minmax_blocks"], float((pmin - rmin).abs().max()),
+                float((pmax - rmax).abs().max()))
+            check(torch.equal(pmin, rmin) and torch.equal(pmax, rmax),
+                  f"K6a partials {label} {x.dtype}")
+            mn, mx = torch.amin(pmin), torch.amax(pmax)
+            if timed:
+                rows.append(dict(
+                    kernel="minmax_blocks", shape=label, bits=None,
+                    ms=device_ms(torch, lambda: qops.minmax_blocks(x),
+                                 flush),
+                    plain_ms=device_ms(torch, lambda: qref.minmax_blocks_ref(
+                        x), flush, reps=7),
+                    bound_ms=bound_ms(esize * n + 8 * pmin.numel()),
+                    library_ms=device_ms(torch, lambda: torch.aminmax(x),
+                                         flush)))
+                r = rows[-1]
+                print(f"  {label:5s}          minmax_blocks {r['ms']:.4f} ms "
+                      f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}"
+                      f", aminmax {r['library_ms']:.4f})")
+            for bits in K6_BITS:
+                scale = affine_scale(mn, mx, bits)
+                codes = qops.quantize_blocks(x, mn, scale, bits)
+                want = qref.quantize_blocks_ref(x, mn, scale, bits)
+                worst["quantize_blocks"] = max(
+                    worst["quantize_blocks"], float(
+                        (codes.int() - want.int()).abs().max()))
+                check(torch.equal(codes, want),
+                      f"K6b codes {label} {x.dtype} {bits}")
+                if bits <= 4:
+                    packed = qops.pack4_blocks(codes)
+                    pwant = qref.pack4_blocks_ref(codes)
+                    worst["pack4_blocks"] = max(
+                        worst["pack4_blocks"],
+                        float((packed != pwant).sum()))
+                    check(torch.equal(packed, pwant),
+                          f"K6c bytes {label} {x.dtype} {bits}")
+                with qops.count_launches() as box:
+                    chain = qops.quantize_pack_threelaunch(x, bits)
+                check(sum(box.counts.values()) == (3 if bits <= 4 else 2),
+                      f"K6 chain launches {box.counts}")
+                fused = qops.quantize_pack(x, bits)
+                check(all(torch.equal(a, b) for a, b in zip(chain, fused)),
+                      f"K6 chain vs K1 {label} {x.dtype} {bits}")
+                if not timed:
+                    continue
+                wire = codes.numel() * codes.element_size()
+                rows.append(dict(
+                    kernel="quantize_blocks", shape=label, bits=bits,
+                    ms=device_ms(torch, lambda: qops.quantize_blocks(
+                        x, mn, scale, bits), flush),
+                    plain_ms=device_ms(torch, lambda: qref.quantize_blocks_ref(
+                        x, mn, scale, bits), flush, reps=7),
+                    bound_ms=bound_ms(esize * n + 8 + wire),
+                    library_ms=None))
+                if bits <= 4:
+                    rows.append(dict(
+                        kernel="pack4_blocks", shape=label, bits=bits,
+                        ms=device_ms(torch, lambda: qops.pack4_blocks(codes),
+                                     flush),
+                        plain_ms=device_ms(
+                            torch, lambda: qref.pack4_blocks_ref(codes),
+                            flush, reps=7),
+                        bound_ms=bound_ms(n + (n + 1) // 2),
+                        library_ms=None))
+                rows.append(dict(
+                    kernel="threelaunch_chain", shape=label, bits=bits,
+                    ms=device_ms(
+                        torch, lambda: qops.quantize_pack_threelaunch(
+                            x, bits), flush),
+                    fused_encode_ms=device_ms(
+                        torch, lambda: qops.quantize_pack(x, bits), flush)))
+                last = [r for r in rows[-3:] if r["shape"] == label
+                        and r["bits"] == bits]
+                print(f"  {label:5s} {bits:2d} bits  " + "  ".join(
+                    f"{r['kernel']} {r['ms']:.4f} ms" for r in last)
+                    + f" (K1 {last[-1]['fused_encode_ms']:.4f} ms)")
+    # Warm device time per call at the stem boundary, 8 bits (K6c at 4).
+    x = inputs["stem"]
+    mn, mx = torch.amin(x), torch.amax(x)
+    calls = {"minmax_blocks": (None, lambda: qops.minmax_blocks(x)),
+             "quantize_blocks": (8, lambda: qops.quantize_blocks(
+                 x, mn, affine_scale(mn, mx, 8), 8))}
+    codes4 = qops.quantize_blocks(x, mn, affine_scale(mn, mx, 4), 4)
+    calls["pack4_blocks"] = (4, lambda: qops.pack4_blocks(codes4))
+    for name, (bits, fn) in calls.items():
+        r = next(r for r in rows if r["kernel"] == name
+                 and r["shape"] == "stem" and r["bits"] == bits)
+        r["profiled_ms"] = profiled_ms(torch, fn)
+    # The chain's own path: the user's call on the served boundary, with
+    # every counter set to 0 just before and read just after.
+    qops.reset_launch_counts()
+    for bits in K6_BITS:
+        qops.quantize_pack_threelaunch(served, bits)
+    torch.cuda.synchronize()
+    counts = qops.launch_counts()
+    print(f"threelaunch path launches: {counts}")
+    for name in K6_KERNELS:
+        check(counts[name] > 0, f"{name} never launched on its path")
+    results["kernel_rows"] += rows
+    results["max_abs_err"].update(worst)
+    results["threelaunch"] = dict(launches=counts, point=K6_POINT,
+                                  shape=list(served.shape))
+    return rows, worst, counts
+
+
+def serve_fleet(torch, results, base_params):
+    """Step 6: full-width ResNet-50 through the fleet server."""
+    from repro_torch.config import JaladConfig, get_config
+    from repro_torch.config.types import EDGE_TK1, EDGE_TX2, DeviceProfile
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.serving.edge_cloud import EdgeCloudServer
+    from repro_torch.serving.fleet import (
+        FleetRequest,
+        FleetServer,
+        build_fleet_server,
+    )
+    from repro_torch.serving.workloads import make_trace
+    import numpy as np
+
+    profiles = [EDGE_TX2, EDGE_TK1, DeviceProfile("edge-mid", 1e12, 1.30),
+                DeviceProfile("edge-fast", 4e12, 0.90)]
+    cfg = get_config("resnet50")
+    t0 = time.perf_counter()
+    fleet0, params = build_fleet_server(
+        cfg, JaladConfig(codec_choices=CODECS), profiles, calib_batches=1,
+        calib_batch_size=4, device="cuda", tables_cache_dir=str(TABLES_DIR))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(
+        _leaves(params), _leaves(base_params))),
+        "fleet weights differ from the served path's")
+    base = fleet0.engine
+    names = base.model.decoupling_points()
+    trace = make_trace(**FLEET_TRACE)
+    # One stream for the whole trace: each make_batch call would rebuild
+    # the 1000 class templates of 3 x 224 x 224 (seconds of host time).
+    batches = ImageStream(cfg.num_classes, 4, cfg.image_size,
+                          seed=500).batches(trace.n_requests)
+    print(f"fleet: {len(profiles)} edges, {trace.n_requests} requests over "
+          f"{trace.n_steps} steps, flash window {trace.flash_window_s} s; "
+          f"build_fleet_server {build_s:.1f} s (tables reloaded)")
+
+    def stream():
+        return trace.requests(lambda uid, d: batches[uid])
+
+    report = {}
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    runs = [("all", fleet0)]
+    runs += [(c, FleetServer(pinned_engine(base, c), params, profiles))
+             for c in CODECS]
+    for label, fleet in runs:
+        qops.reset_launch_counts()
+        t1 = time.perf_counter()
+        done = fleet.serve(stream())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        # Counted before the checks below, whose own launches do not count.
+        got = qops.launch_counts()
+        for name, v in got.items():
+            counts[name] += v
+        check(len(done) == trace.n_requests,
+              f"fleet {label}: {len(done)} of {trace.n_requests} done")
+        by_uid = {r.uid: r for r in done}
+        for r in done:
+            check(tuple(r.logits.shape) == (4, cfg.num_classes)
+                  and bool(torch.isfinite(r.logits).all()),
+                  f"fleet {label} request {r.uid} logits")
+        # Each device alone through the synchronous server.
+        for d, dev in enumerate(fleet.devices):
+            ref = EdgeCloudServer(dev.engine, params)
+            for uid in np.nonzero(trace.device_ids == d)[0]:
+                r = by_uid[int(uid)]
+                logits, bd = ref.serve_batch(batches[r.uid], r.bandwidth)
+                check(r.breakdown == bd and torch.equal(r.logits, logits),
+                      f"fleet {label} request {r.uid}: differs from the "
+                      "synchronous server")
+            check(dev.clock == ref.clock and dev.log == ref.log,
+                  f"fleet {label} device {d}: clock or log differs")
+        # The scalar decision plane, and the fused tail.
+        scalar = FleetServer(fleet.engine, params, profiles,
+                             vectorized=False).serve(stream())
+        fused = FleetServer(fleet.engine, params, profiles,
+                            fuse_cloud_tail=True).serve(stream())
+        worst = 0.0
+        for r, rs, rf in zip(done, scalar, fused):
+            check(r.uid == rs.uid == rf.uid, f"fleet {label}: order")
+            check(_plan(r.plan) == _plan(rs.plan)
+                  and r.timeline == rs.timeline
+                  and r.breakdown == rs.breakdown == rf.breakdown
+                  and torch.equal(r.logits, rs.logits),
+                  f"fleet {label} request {r.uid}: scalar path differs")
+            scale = float(r.logits.abs().max())
+            diff = float((rf.logits - r.logits).abs().max())
+            worst = max(worst, diff / max(scale, 1e-30))
+        check(worst <= FUSED_TAIL_RTOL,
+              f"fleet {label}: fused tail off by {worst:.3e} of the scale")
+        # One decode launch per decoupled cloud group.
+        groups = [g for g in fleet.cloud_groups if g.key is not None]
+        n_pc = sum(1 for g in groups if g.key[2] == "perchannel")
+        check(got["fused_decode"] == len(groups) - n_pc
+              and got["pc_decode"] == n_pc,
+              f"fleet {label}: {got['fused_decode']} K2 and "
+              f"{got['pc_decode']} K5 launches for {len(groups)} groups")
+        check(fleet.batched_launches() >= 1,
+              f"fleet {label}: no batched cloud launch")
+        switches = fleet.controller.switch_count()
+        check(switches >= 1, f"fleet {label}: no re-plan fired")
+        plans = sorted({(names[r.plan.point] if r.plan.point >= 0
+                         else "cloud", r.plan.bits, r.timeline.plan_codec)
+                        for r in done})
+        print(f"  fleet {label:10s} {len(done)} requests: makespan "
+              f"{fleet.makespan_s * 1e3:.2f} ms vs synchronous "
+              f"{fleet.synchronous_time_s() * 1e3:.2f} ms (modeled), wall "
+              f"{wall * 1e3:.1f} ms, {len(fleet.cloud_groups)} cloud groups "
+              f"({fleet.batched_launches()} batched), {switches} re-plans, "
+              f"fused tail within {worst:.2e}; plans {plans}; launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        report[label] = dict(
+            requests=len(done), makespan_s=fleet.makespan_s,
+            synchronous_s=fleet.synchronous_time_s(), wall_s=wall,
+            cloud_groups=[[list(g.key) if g.key else None, len(g.uids)]
+                          for g in fleet.cloud_groups],
+            batched_launches=fleet.batched_launches(), replans=switches,
+            fused_tail_rel_err=worst, plans=plans, launches=got)
+    print(f"fleet launches: {counts}")
+    for name in KERNELS:
+        check(counts[name] > 0, f"{name} never launched in the fleet")
+    results["fleet"] = dict(launches=counts, build_s=build_s,
+                            trace=FLEET_TRACE, runs=report)
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for t in tree for v in _leaves(t)]
+    return [tree]
+
+
+def _plan(p):
+    return (p.point, p.bits, p.codec, p.predicted_latency,
+            p.predicted_acc_drop)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -587,11 +908,26 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
     results["build_s"] = build_s
-    rows, worst = check_kernels(torch, results)
-    pc_rows, _ = check_perchannel_kernels(torch, results)
+    step_s = results["step_s"] = {}
+
+    def step(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(torch, results, *a)
+        step_s[name] = time.perf_counter() - t1
+        print(f"[{name}: {step_s[name]:.1f} s]")
+        return out
+
+    rows, worst = step("kernels", check_kernels)
+    pc_rows, _ = step("perchannel kernels", check_perchannel_kernels)
     rows = rows + pc_rows
-    served, base, params = serve_main_path(torch, results)
-    piped = serve_pipeline(torch, results, base, params)
+    served, base, params = step("served path", serve_main_path)
+    piped = step("pipeline", serve_pipeline, base, params)
+    k6_rows, _, k6_path = step("three-launch chain",
+                               check_threelaunch_kernels, base, params)
+    rows += k6_rows
+    fleet = step("fleet", serve_fleet, params)
+    paths = {"served": served, "pipeline": piped, "fleet": fleet,
+             "threelaunch": k6_path}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel
@@ -608,18 +944,28 @@ def main(argv=None) -> int:
                       "src/repro/kernels/quantize/quantize.py:321"),
         "pc_decode": ("src/repro_torch/csrc/perchannel.cu",
                       "src/repro/kernels/quantize/quantize.py:376"),
+        "minmax_blocks": ("src/repro_torch/csrc/threelaunch.cu",
+                          "src/repro/kernels/quantize/quantize.py:430"),
+        "quantize_blocks": ("src/repro_torch/csrc/threelaunch.cu",
+                            "src/repro/kernels/quantize/quantize.py:462"),
+        "pack4_blocks": ("src/repro_torch/csrc/threelaunch.cu",
+                         "src/repro/kernels/quantize/quantize.py:491"),
     }
+    # The kernels line's times: the stem boundary at 8 bits (K6a has no
+    # width; K6c runs at 4 bits or fewer).
+    line_bits = {"minmax_blocks": None, "pack4_blocks": 4}
     kernels = []
     for name, (source, replaces) in meta.items():
-        r = row(name)
+        r = row(name, bits=line_bits.get(name, 8))
+        by_path = {p: c[name] for p, c in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served[name] + piped[name],
-            "launches_by_path": {"served": served[name],
-                                 "pipeline": piped[name]},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": r["library_ms"]})
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "warm_ms": r.get("profiled_ms")})
     results["kernels"] = kernels
     if args.json:
         out = Path(args.json)

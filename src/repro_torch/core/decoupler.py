@@ -8,6 +8,7 @@ yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any, List, Optional, Tuple
 
@@ -47,8 +48,9 @@ class DecoupledPlan:
 class DecoupledRunner:
     """Executable split model on the parameters' device. ``edge_step``
     runs the head and encodes the boundary (a host ``WireBlob`` — the
-    link); ``cloud_step`` decodes it and finishes the inference. The wire
-    format is entirely the plan's codec's."""
+    link); ``cloud_step`` decodes it and finishes the inference, and
+    ``cloud_step_batch`` does so for a group of blobs with one batched
+    decode. The wire format is entirely the plan's codec's."""
 
     model: Model
     params: Any
@@ -84,6 +86,49 @@ class DecoupledRunner:
         boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
                                                 device=self.device)
         return self.model.run_tail(self.params, boundary, self.plan.point)
+
+    @torch.no_grad()
+    def cloud_step_batch(self, blobs: List["WireBlob"],
+                         extras_list: Optional[List[Any]] = None,
+                         fuse_tail: bool = False) -> List[torch.Tensor]:
+        """Batched cloud half, mirroring ``edge_step_batch``: one batched
+        wire decode (``BoundaryCodec.decode_batch``, bit-identical per blob
+        by the codec contract) feeding the tail forwards.
+
+        ``fuse_tail=False`` runs each tail through the same ``run_tail``
+        as :meth:`cloud_step`, so every result equals serving the blob
+        alone; the decode batching still collapses B dequant launches into
+        one. ``fuse_tail=True`` also concatenates the group along the batch
+        axis into ONE tail forward, then splits the logits at the blobs'
+        batch sizes: fastest, but equal only within float tolerance
+        (convolutions pick other algorithms, and sum in another order, at
+        another batch size). A group of one blob, blobs carrying
+        ``extras``, mixed codecs or boundaries whose trailing dims differ
+        run through the per-request :meth:`cloud_step`."""
+        from repro_torch.codec import get_codec
+
+        if extras_list is None:
+            extras_list = [None] * len(blobs)
+        if not blobs:
+            return []
+        batchable = (
+            len(blobs) > 1
+            and all(e is None for e in extras_list)
+            and len({b.codec for b in blobs}) == 1
+            and len({tuple(b.shape[1:]) for b in blobs}) == 1
+            and all(len(b.shape) >= 1 for b in blobs)
+        )
+        if not batchable:
+            return [self.cloud_step(b, e)
+                    for b, e in zip(blobs, extras_list)]
+        boundaries = get_codec(blobs[0].codec).decode_batch(
+            blobs, out_dtype=self._dtype, device=self.device)
+        if not fuse_tail:
+            return [self.model.run_tail(self.params, x, self.plan.point)
+                    for x in boundaries]
+        logits = self.model.run_tail(self.params, torch.cat(boundaries),
+                                     self.plan.point)
+        return list(torch.split(logits, [int(b.shape[0]) for b in blobs]))
 
     def run(self, batch):
         """Full decoupled inference; returns (logits, transfer_bytes)."""
@@ -131,6 +176,16 @@ class JaladEngine:
         if sol is None:
             return space.cloud_only_plan(bw)
         return space.plan_from_solution(sol)
+
+    def for_edge(self, edge_profile) -> "JaladEngine":
+        """A per-device engine sharing this engine's tables, cloud profile
+        and PlanSpace precomputation; only the edge-time vector differs.
+        The fleet server builds one of these per heterogeneous device."""
+        lat = LatencyModel(self.latency.fmacs_per_point, edge_profile,
+                           self.latency.cloud, self.latency.input_bytes)
+        return dataclasses.replace(
+            self, latency=lat,
+            _plan_space=self.plan_space.with_edge(edge_profile))
 
     def make_runner(self, params, plan: DecoupledPlan) -> DecoupledRunner:
         return DecoupledRunner(self.model, params, plan)

@@ -16,8 +16,14 @@ FMAC time vectors include the batch factor.
 The port's own copy of the reference's ``PlanSpace``, kept float64
 bit-identical so both packages decide the same plans from the same
 tables; the enumeration and branch-and-bound solvers of
-:mod:`repro_torch.core.ilp` stay as cross-checked oracles. The streaming,
-fleet and three-tier extensions are not ported yet.
+:mod:`repro_torch.core.ilp` stay as cross-checked oracles.
+
+Fleet serving builds on ``with_edge``: the size/accuracy tables and the
+cloud vector are device-independent, so :class:`FleetPlanSpace` stacks D
+heterogeneous edge devices over one shared ``PlanSpace``, and its
+``decide_all(bandwidths)`` re-plans the whole fleet in one fused op,
+bitwise-equal to D independent ``with_edge(p).decide(bw)`` calls. The
+streaming and three-tier extensions are not ported yet.
 """
 from __future__ import annotations
 
@@ -291,4 +297,260 @@ class PlanSpace:
         )
 
 
-__all__: List[str] = ["PlanSpace"]
+# ---------------------------------------------------------------------------
+# Fleet decision plane: D devices, one fused re-plan
+# ---------------------------------------------------------------------------
+
+# Devices per argmin chunk. The scratch working set is 2 * CHUNK * N floats
+# (~3 MB at N=50) — small enough to stay cache-resident, so the per-device
+# cost of decide_all is flat in D instead of falling off a RAM cliff at
+# 10^5 devices.
+_FLEET_CHUNK = 4096
+
+
+@dataclass(frozen=True, eq=False)
+class FleetDecision:
+    """All D plans of one ``decide_all`` call, held as arrays.
+
+    ``flat_j[d]`` is the winning cell of device d on the flattened
+    (N, C·K) grid (-1 = cloud-only fallback) and ``cost[d]`` its
+    predicted latency — bitwise-identical to what the per-device
+    ``PlanSpace.with_edge(p).decide(bw)`` oracle returns. ``plan(d)``
+    materializes the matching :class:`DecoupledPlan` on demand, so a
+    10^5-device re-plan never builds 10^5 Python objects unless asked.
+    """
+
+    fleet: "FleetPlanSpace"
+    bandwidths: np.ndarray            # (D,) the bandwidths decided under
+    flat_j: np.ndarray                # (D,) int64 cell index, -1 cloud-only
+    cost: np.ndarray                  # (D,) predicted latency Z
+    solve_ms: float = 0.0
+
+    def __len__(self) -> int:
+        return int(self.flat_j.shape[0])
+
+    def plan(self, d: int) -> "DecoupledPlan":
+        space = self.fleet.space
+        j = int(self.flat_j[d])
+        if j < 0:
+            return _plan_cls()(-1, 0, float(self.cost[d]), 0.0,
+                               self.solve_ms)
+        i, jj = divmod(j, space.n_choices)
+        ci, ki = divmod(jj, len(space.codecs))
+        return _plan_cls()(
+            point=space.point_rows[i],
+            bits=space.bits_choices[ci],
+            predicted_latency=float(self.cost[d]),
+            predicted_acc_drop=float(space.acc_flat[i, jj]),
+            solve_ms=self.solve_ms,
+            codec=space.codecs[ki],
+        )
+
+    def plans(self) -> List["DecoupledPlan"]:
+        return [self.plan(d) for d in range(len(self))]
+
+
+@dataclass(frozen=True, eq=False)
+class FleetPlanSpace:
+    """One shared :class:`PlanSpace` stacked across D edge devices.
+
+    ``with_edge`` generalized from one profile to D profiles: the
+    size/accuracy tables, cloud vector and cumulative-FMAC profile are
+    shared by identity; per-device state is two ``(D,)`` scalars
+    (``w``, ``flops``) plus the derived ``(D, N)`` edge-time matrix.
+    ``decide_all(bandwidths)`` is the fleet-wide re-plan — one fused
+    ``argmin(base + size/BW)`` over the ``(D, N·C·K)`` decision grid,
+    returning all D plans at once.
+
+    **Exactness.** The (C·K) choice axis enters the objective only
+    through ``size_flat / BW`` (+the feasibility mask): with BW > 0 the
+    per-row argmin over columns is bandwidth-independent, so it is
+    hoisted to build time (``j_star``/``s_star``) and the runtime op is
+    an ``argmin`` over ``(D, N)`` — the same argmin over the same float64
+    bits, factored. Per-device ties resolve to the lowest flat index in
+    both forms, so ``decide_all`` agrees *bitwise* with D independent
+    ``PlanSpace.with_edge(p).decide(bw)`` calls, and with the
+    reference's ``FleetPlanSpace`` (``tests/test_torch_fleet_planner.py``).
+
+    **Memory shape.** The edge term is recomputed on the fly inside the
+    argmin from the ``(D,)`` device scalars (cache-resident chunks)
+    instead of streaming a precomputed ``(D, N)`` matrix from RAM — that
+    keeps the per-device cost flat to 10^5 devices. The stacked
+    ``edge_mat`` is still materialized (lazily) for the O(1)-per-device
+    gathers: ``stage_times_all``, ``plan_cost_all`` and the per-device
+    object views.
+    """
+
+    space: PlanSpace
+    profiles: Tuple[DeviceProfile, ...]   # may be empty for array-built fleets
+    w_vec: np.ndarray                     # (D,) fitted multiplier per device
+    flops_vec: np.ndarray                 # (D,) peak FLOP/s per device
+    j_star: np.ndarray                    # (N,) bw-independent best column
+    s_star: np.ndarray                    # (N,) min feasible wire bytes (+inf)
+    cloud_only_exec: float                # T_C of the full network
+    _edge_mat: Optional[np.ndarray] = field(default=None, repr=False)
+
+    # ------------------------------------------------------- construction
+    @classmethod
+    def build(cls, space: PlanSpace,
+              profiles: Optional[Sequence[DeviceProfile]] = None, *,
+              flops: Optional[np.ndarray] = None,
+              w: Optional[np.ndarray] = None) -> "FleetPlanSpace":
+        """Stack D device views over one shared ``space``. Pass either
+        ``profiles`` (the object API) or raw ``flops``/``w`` arrays (so a
+        10^5-device fleet never materializes 10^5 profile objects)."""
+        if profiles is not None:
+            if flops is not None or w is not None:
+                raise ValueError(
+                    "pass either profiles or (flops, w) arrays, not both")
+            profs = tuple(profiles)
+            w_vec = _readonly(np.array([p.w for p in profs]))
+            flops_vec = _readonly(np.array([p.flops for p in profs]))
+        else:
+            if flops is None or w is None:
+                raise ValueError("need either profiles or (flops, w) arrays")
+            profs = ()
+            w_vec = _readonly(np.asarray(w))
+            flops_vec = _readonly(np.asarray(flops))
+        if w_vec.shape != flops_vec.shape or w_vec.ndim != 1:
+            raise ValueError("w and flops must be matching (D,) vectors")
+        if not (flops_vec > 0).all():
+            raise ValueError("device flops must be positive")
+        masked = np.where(space.feasible, space.size_flat, np.inf)
+        return cls(
+            space=space,
+            profiles=profs,
+            w_vec=w_vec,
+            flops_vec=flops_vec,
+            j_star=_freeze(masked.argmin(axis=1)),
+            s_star=_readonly(masked.min(axis=1)),
+            cloud_only_exec=space.cloud_exec_full(),
+        )
+
+    # ------------------------------------------------------------ queries
+    @property
+    def n_devices(self) -> int:
+        return int(self.w_vec.shape[0])
+
+    def profile(self, d: int) -> DeviceProfile:
+        if self.profiles:
+            return self.profiles[d]
+        return DeviceProfile(f"fleet-{d}", float(self.flops_vec[d]),
+                             float(self.w_vec[d]))
+
+    def device_view(self, d: int) -> PlanSpace:
+        """The scalar per-device view — ``with_edge`` over the shared
+        space, bitwise-identical to ``edge_mat[d]``."""
+        return self.space.with_edge(self.profile(d))
+
+    @property
+    def edge_mat(self) -> np.ndarray:
+        """(D, N) stacked edge-time matrix: row d == the ``edge_vec`` of
+        ``with_edge(profile(d))``, bit for bit (same ``(w*q)/F`` float64
+        ops, vectorized). Built lazily, cached, read-only."""
+        if self._edge_mat is None:
+            mat = (self.w_vec[:, None] * self.space.cum_fmacs[None, :])
+            mat /= self.flops_vec[:, None]
+            object.__setattr__(self, "_edge_mat", _readonly(mat))
+        return self._edge_mat
+
+    def _gather_wf(self, devices: Optional[np.ndarray]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        if devices is None:
+            return self.w_vec, self.flops_vec
+        dv = np.asarray(devices, dtype=np.int64)
+        return self.w_vec[dv], self.flops_vec[dv]
+
+    def cloud_only_time_all(self, bandwidths: np.ndarray,
+                            image_ratio: float = 1.0) -> np.ndarray:
+        """Vectorized ``PlanSpace.cloud_only_time`` (same float64 ops)."""
+        return (self.space.input_bytes * image_ratio
+                / np.asarray(bandwidths, dtype=np.float64)
+                + self.cloud_only_exec)
+
+    # ----------------------------------------------------------- deciding
+    def decide_all(self, bandwidths: np.ndarray,
+                   devices: Optional[np.ndarray] = None) -> FleetDecision:
+        """Re-plan the fleet under per-device bandwidths: ONE fused
+        ``argmin(base + size/BW)`` over the stacked (D, N·C·K) grid
+        (factored — see class docstring), with the per-device cloud-only
+        fallback exactly where the scalar ``decide`` falls back.
+
+        ``devices`` restricts the op to a subset (the serving waves use
+        this); ``bandwidths`` then aligns with that subset.
+        """
+        t0 = time.perf_counter()
+        bw = np.ascontiguousarray(bandwidths, dtype=np.float64)
+        w, flops = self._gather_wf(devices)
+        d = bw.shape[0]
+        if d != w.shape[0]:
+            raise ValueError(
+                f"got {d} bandwidths for {w.shape[0]} devices")
+        space = self.space
+        cf, cl, s = space.cum_fmacs, space.cloud_vec, self.s_star
+        n = cf.shape[0]
+        rows = np.empty(d, dtype=np.int64)
+        best = np.empty(d, dtype=np.float64)
+        chunk = max(1, min(_FLEET_CHUNK, d))
+        ebuf = np.empty((chunk, n))
+        cbuf = np.empty((chunk, n))
+        for lo in range(0, d, chunk):
+            hi = min(lo + chunk, d)
+            e = ebuf[:hi - lo]
+            # base = T_E + T_C, recomputed from the device scalars with
+            # the exact with_edge float64 ops: (w * cum_fmacs) / flops
+            np.multiply(w[lo:hi, None], cf[None, :], out=e)
+            e /= flops[lo:hi, None]
+            e += cl[None, :]
+            c = cbuf[:hi - lo]
+            # cost = size/BW + base — same op order as PlanSpace.decide
+            # (true division; += is bitwise-commutative for floats)
+            np.divide(s[None, :], bw[lo:hi, None], out=c)
+            c += e
+            rr = c.argmin(axis=1)
+            rows[lo:hi] = rr
+            best[lo:hi] = c[np.arange(hi - lo), rr]
+        flat = rows * space.n_choices + self.j_star[rows]
+        infeasible = np.isinf(best)
+        if infeasible.any():
+            flat[infeasible] = -1
+            best[infeasible] = self.cloud_only_time_all(bw[infeasible])
+        ms = (time.perf_counter() - t0) * 1e3
+        return FleetDecision(self, bw, flat, best, ms)
+
+    def stage_times_all(self, flat_j: np.ndarray,
+                        devices: Optional[np.ndarray] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized ``PlanSpace.stage_times``: (T_E, T_C) arrays for
+        one plan cell per device (−1 = cloud-only: T_E=0, full-network
+        T_C)."""
+        j = np.asarray(flat_j, dtype=np.int64)
+        co = j < 0
+        rows = np.where(co, 0, j) // self.space.n_choices
+        dv = (np.arange(self.n_devices) if devices is None
+              else np.asarray(devices, dtype=np.int64))
+        edge_t = np.where(co, 0.0, self.edge_mat[dv, rows])
+        cloud_t = np.where(co, self.cloud_only_exec,
+                           self.space.cloud_vec[rows])
+        return edge_t, cloud_t
+
+    def plan_cost_all(self, flat_j: np.ndarray, bandwidths: np.ndarray,
+                      devices: Optional[np.ndarray] = None) -> np.ndarray:
+        """Vectorized ``PlanSpace.plan_cost``: Z of one held plan cell
+        per device at per-device bandwidths — the fleet hysteresis
+        check reads this."""
+        j = np.asarray(flat_j, dtype=np.int64)
+        bw = np.asarray(bandwidths, dtype=np.float64)
+        co = j < 0
+        safe = np.where(co, 0, j)
+        rows, cols = np.divmod(safe, self.space.n_choices)
+        dv = (np.arange(self.n_devices) if devices is None
+              else np.asarray(devices, dtype=np.int64))
+        base = self.edge_mat[dv, rows] + self.space.cloud_vec[rows]
+        cost = base + self.space.size_flat[rows, cols] / bw
+        if co.any():
+            cost = np.where(co, self.cloud_only_time_all(bw), cost)
+        return cost
+
+
+__all__: List[str] = ["PlanSpace", "FleetPlanSpace", "FleetDecision"]

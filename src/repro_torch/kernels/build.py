@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("quantize", "huffman_pack", "perchannel")
+SOURCES = ("quantize", "huffman_pack", "perchannel", "threelaunch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,10 +1,12 @@
 """Public wrappers of the quantize kernels: K1 (encode) and K2 (decode)
-per tensor, K4 (encode) and K5 (decode) per channel.
+per tensor, K4 (encode) and K5 (decode) per channel, and the three-launch
+encode chain K6a (range partials), K6b (quantize), K6c (nibble pack).
 
 Dispatch rule, the same for every kernel wrapper of the port: a CPU tensor
 runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor launches the
-hand-written kernel of ``csrc/quantize.cu`` / ``csrc/perchannel.cu`` or
-raises. There is no fallback from one to the other.
+hand-written kernel of ``csrc/quantize.cu`` / ``csrc/perchannel.cu`` /
+``csrc/threelaunch.cu`` or raises. There is no fallback from one to the
+other.
 
 Per-tensor codes are the flat *wire* layout, per sample: two codes per
 byte for bits <= 4 (``(n + 1) // 2`` bytes), one u8 per element for
@@ -16,7 +18,7 @@ bits))`` per channel.
 
 The launch counters (:mod:`repro_torch.kernels.counters`) count CUDA
 kernel launches: K1 is two (range reduction, then quantize + pack), K2,
-K4 and K5 one each.
+K4, K5 and each of K6a, K6b, K6c one.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.quantization import dequant_step
+from repro_torch.core.quantization import affine_scale, dequant_step
 from repro_torch.kernels import build
 from repro_torch.kernels.counters import (  # noqa: F401  (re-exported)
     bump,
@@ -39,6 +41,7 @@ from repro_torch.kernels.quantize import ref
 from repro_torch.kernels.quantize.ref import (
     channel_dims,
     code_dtype,
+    minmax_chunk,
     perchannel_words,
     wire_len,
 )
@@ -353,3 +356,104 @@ def perchannel_decode(words2: torch.Tensor, mn, mx, bits: int, shape,
     """Single-tensor per-channel decode."""
     return perchannel_decode_batch(words2[None], mn, mx, bits, shape, axis,
                                    out_dtype)[0]
+
+
+# ---------------------------------------------------------------------------
+# Three-launch encode chain: K6a, K6b, K6c
+# ---------------------------------------------------------------------------
+
+
+def _flat_input(x: torch.Tensor, what: str) -> torch.Tensor:
+    """A non-empty float32 / bfloat16 CUDA tensor, flat and contiguous."""
+    _check_cuda(x, what)
+    if x.numel() == 0:
+        raise ValueError(f"{what}: empty input")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    return x.reshape(-1).contiguous()
+
+
+def minmax_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a: a tensor of n >= 1 elements -> per-block (min, max) partials,
+    two (P,) float32 tensors (:func:`ref.minmax_blocks_ref` says which
+    elements each block covers). The chain folds them on the device."""
+    if x.device.type == "cpu":
+        return ref.minmax_blocks_ref(x)
+    xf = _flat_input(x, "minmax_blocks")
+    n = xf.numel()
+    chunk = minmax_chunk(n)
+    parts = -(-n // chunk)
+    pmin = torch.empty((parts,), dtype=torch.float32, device=xf.device)
+    pmax = torch.empty_like(pmin)
+    fn = _fn("threelaunch", "jalad_minmax_blocks",
+             [_P, _I, _L, _L, _I, _P, _P, _P])
+    status = fn(_ptr(xf), int(xf.dtype == torch.bfloat16), n, chunk, parts,
+                _ptr(pmin), _ptr(pmax), _stream())
+    build.check(status, "minmax_blocks")
+    bump("minmax_blocks")
+    return pmin, pmax
+
+
+def quantize_blocks(x: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
+                    bits: int) -> torch.Tensor:
+    """K6b: a tensor of n >= 1 elements + 0-d float32 (mn, scale) on its
+    device -> (n,) codes, u8 at bits <= 8, u16 above. The kernel reads
+    ``mn`` and ``scale`` through pointers: no host sync."""
+    _check_bits(bits)
+    if x.device.type == "cpu":
+        return ref.quantize_blocks_ref(x, mn, scale, bits)
+    xf = _flat_input(x, "quantize_blocks")
+    mn = mn.to(torch.float32).reshape(()).contiguous()
+    scale = scale.to(torch.float32).reshape(()).contiguous()
+    if mn.device != xf.device or scale.device != xf.device:
+        raise ValueError("quantize_blocks: mn and scale must lie on the "
+                         "input's device")
+    n = xf.numel()
+    codes = torch.empty((n,), dtype=code_dtype(bits), device=xf.device)
+    fn = _fn("threelaunch", "jalad_quantize_blocks",
+             [_P, _I, _L, _P, _P, _I, _P, _I, _P])
+    status = fn(_ptr(xf), int(xf.dtype == torch.bfloat16), n, _ptr(mn),
+                _ptr(scale), bits, _ptr(codes), _grid(n, 1), _stream())
+    build.check(status, "quantize_blocks")
+    bump("quantize_blocks")
+    return codes
+
+
+def pack4_blocks(codes: torch.Tensor) -> torch.Tensor:
+    """K6c: (n,) u8 codes below 16, n >= 1 -> (ceil(n / 2),) packed
+    bytes."""
+    if codes.device.type == "cpu":
+        return ref.pack4_blocks_ref(codes)
+    _check_cuda(codes, "pack4_blocks")
+    if codes.dtype != torch.uint8 or codes.numel() == 0:
+        raise ValueError(f"pack4_blocks: expected non-empty uint8 codes, "
+                         f"got {codes.dtype} x {codes.numel()}")
+    codes = codes.reshape(-1).contiguous()
+    n = codes.numel()
+    out_n = (n + 1) // 2
+    out = torch.empty((out_n,), dtype=torch.uint8, device=codes.device)
+    fn = _fn("threelaunch", "jalad_pack4_blocks", [_P, _L, _P, _L, _I, _P])
+    status = fn(_ptr(codes), n, _ptr(out), out_n, _grid(out_n, 1),
+                _stream())
+    build.check(status, "pack4_blocks")
+    bump("pack4_blocks")
+    return out
+
+
+def quantize_pack_threelaunch(x: torch.Tensor, bits: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The three-launch edge encode: K6a range partials (folded with
+    ``torch.amin`` / ``torch.amax`` on the device), K6b quantize, then K6c
+    pack at bits <= 4, the codes making a round trip through device memory
+    in between. Returns ``(flat wire codes, mn, mx)``, byte-identical to
+    :func:`quantize_pack` (K1); 3 launches at bits <= 4, 2 above."""
+    _check_bits(bits)
+    if x.numel() == 0:
+        return quantize_pack(x, bits)
+    pmin, pmax = minmax_blocks(x)
+    mn, mx = torch.amin(pmin), torch.amax(pmax)
+    codes = quantize_blocks(x, mn, affine_scale(mn, mx, bits), bits)
+    if bits <= 4:
+        codes = pack4_blocks(codes)
+    return codes, mn, mx

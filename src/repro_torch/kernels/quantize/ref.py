@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the quantize kernels K1, K2 (per-tensor) and
-K4, K5 (per-channel).
+"""Plain PyTorch versions of the quantize kernels K1, K2 (per-tensor), K4,
+K5 (per-channel) and the three-launch encode chain K6a, K6b, K6c.
 
-They compute exactly what ``csrc/quantize.cu`` and ``csrc/perchannel.cu``
-compute, on any device: the wrappers in
+They compute exactly what ``csrc/quantize.cu``, ``csrc/perchannel.cu`` and
+``csrc/threelaunch.cu`` compute, on any device: the wrappers in
 :mod:`repro_torch.kernels.quantize.ops` run them for CPU tensors, the CPU
 tests hold them byte- and bit-identical to the reference kernels, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card. Nothing
@@ -129,3 +129,55 @@ def pc_decode_ref(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
     out = fma_f32(codes.to(torch.float32), step[..., None], mn[..., None])
     out = out.to(out_dtype).reshape(bsz, c, outer, inner).transpose(1, 2)
     return out.reshape((bsz,) + tuple(int(s) for s in shape))
+
+
+# ---------------------------------------------------------------------------
+# Three-launch encode chain: K6a range partials, K6b quantize, K6c pack
+# ---------------------------------------------------------------------------
+
+# K6a's blocks cover contiguous chunks of a multiple of this many elements
+# (256 threads x 4), about 1056 blocks at most (132 SMs x 8).
+MINMAX_CHUNK_UNIT = 1024
+MINMAX_MAX_PARTS = 1056
+
+
+def minmax_chunk(n: int) -> int:
+    """Elements per K6a block for ``n >= 1`` elements: every one of the
+    ``ceil(n / chunk)`` blocks covers at least one element."""
+    want = -(-n // MINMAX_MAX_PARTS)
+    return -(-want // MINMAX_CHUNK_UNIT) * MINMAX_CHUNK_UNIT
+
+
+def minmax_blocks_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a: flat (n,) float, n >= 1 -> per-block (min, max) partials, two
+    (P,) float32 tensors, block p covering elements ``[p * chunk, (p + 1)
+    * chunk)`` of :func:`minmax_chunk`."""
+    xf = x.reshape(-1).to(torch.float32)
+    n = xf.numel()
+    chunk = minmax_chunk(n)
+    parts = -(-n // chunk)
+    pad = parts * chunk - n
+    lo = torch.cat([xf, xf.new_full((pad,), float("inf"))])
+    hi = torch.cat([xf, xf.new_full((pad,), float("-inf"))])
+    return (lo.reshape(parts, chunk).amin(dim=1),
+            hi.reshape(parts, chunk).amax(dim=1))
+
+
+def quantize_blocks_ref(x: torch.Tensor, mn: torch.Tensor,
+                        scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """K6b: flat (n,) float + scalar (mn, scale) -> (n,) codes
+    ``clip(round((x - mn) * scale), 0, 2^c - 1)``, u8 at c <= 8, u16
+    above."""
+    q = torch.clamp(torch.round((x.reshape(-1).to(torch.float32) - mn)
+                                * scale), 0, (1 << bits) - 1)
+    return q.to(torch.int32).to(code_dtype(bits))
+
+
+def pack4_blocks_ref(codes: torch.Tensor) -> torch.Tensor:
+    """K6c: (n,) u8 codes < 16 -> (ceil(n / 2),) bytes ``codes[2i] |
+    codes[2i + 1] << 4``; an odd count repeats ``codes[0]`` in the last
+    high nibble, as the reference's first-element tile padding does."""
+    q = codes.reshape(-1)
+    if q.numel() % 2:
+        q = torch.cat([q, q[:1]])
+    return q[0::2] | (q[1::2] << 4)

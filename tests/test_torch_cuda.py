@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K5 against their plain PyTorch versions, on
-the card. Every test here carries ``requires_cuda`` and skips
+"""The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
+the card, and the batched cloud step that the fleet server runs. Every test here carries ``requires_cuda`` and skips
 without a card. The file imports neither JAX nor the reference package
 (the plain versions are pinned to the reference by the other
 ``test_torch_*`` files), so it also runs where only PyTorch is installed:
@@ -159,3 +159,55 @@ def test_perchannel_codec_matches_cpu(cuda):
             assert np.array_equal(blob.x_min, cpu.x_min)
             back = codec.decode_batch([blob, blob], device=cuda)[0]
             assert torch.equal(back.cpu(), codec.decode(cpu, device="cpu"))
+
+
+@pytest.mark.parametrize("bits", (2, 3, 4, 8, 12, 16))
+def test_threelaunch_kernels_match_plain_and_fused_encode(cuda, bits):
+    for n in (1, 4551, 70_001, 4 * 64 * 112 * 112):
+        x = torch.relu(torch.randn(n, device=cuda))
+        for xx in (x, x.to(torch.bfloat16)):
+            with qops.count_launches() as box:
+                pmin, pmax = qops.minmax_blocks(xx)
+            assert box.counts["minmax_blocks"] == 1
+            rmin, rmax = qref.minmax_blocks_ref(xx)
+            assert torch.equal(pmin, rmin) and torch.equal(pmax, rmax)
+            mn, mx = torch.amin(pmin), torch.amax(pmax)
+            scale = tq.affine_scale(mn, mx, bits)
+            codes = qops.quantize_blocks(xx, mn, scale, bits)
+            assert torch.equal(codes,
+                               qref.quantize_blocks_ref(xx, mn, scale, bits))
+            if bits <= 4:
+                assert torch.equal(qops.pack4_blocks(codes),
+                                   qref.pack4_blocks_ref(codes))
+            with qops.count_launches() as box:
+                chain = qops.quantize_pack_threelaunch(xx, bits)
+            assert sum(box.counts.values()) == (3 if bits <= 4 else 2)
+            for got, want in zip(chain, qops.quantize_pack(xx, bits)):
+                assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("codec", ("bitpack", "huffman", "perchannel"))
+def test_cloud_step_batch_matches_cloud_step(cuda, codec):
+    from repro_torch.config import get_config
+    from repro_torch.core.decoupler import DecoupledPlan, DecoupledRunner
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.api import build_model
+
+    model = build_model(get_config("resnet50").reduced())
+    params = model.init(0, cuda)
+    runner = DecoupledRunner(model, params,
+                             DecoupledPlan(4, 4, 0.0, 0.0, 0.0, codec))
+    blobs = [runner.edge_step(make_batch(model.cfg, bsz, 64, seed=i))[0]
+             for i, bsz in enumerate((2, 2, 2))]
+    name = "pc_decode" if codec == "perchannel" else "fused_decode"
+    with qops.count_launches() as box:
+        outs = runner.cloud_step_batch(blobs)
+    assert box.counts[name] == 1
+    fused = runner.cloud_step_batch(blobs, fuse_tail=True)
+    for blob, out, f in zip(blobs, outs, fused):
+        want = runner.cloud_step(blob)
+        assert torch.equal(out, want)
+        scale = float(want.abs().max())
+        assert float((f - want).abs().max()) <= 1e-4 * scale
+    torch.cuda.synchronize()

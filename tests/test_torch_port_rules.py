@@ -31,7 +31,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout.split(" ", 1)
-    assert int(out[0]) >= 25          # every module of the port was imported
+    assert int(out[0]) >= 42          # every module of the port was imported
     assert out[1].strip() == "[]"
 
 
@@ -41,7 +41,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.models.api import build_model
     from repro_torch.models.bridge import params_from_numpy
+    from repro_torch.config.types import EDGE_TX2
     from repro_torch.serving.edge_cloud import build_edge_cloud_server
+    from repro_torch.serving.fleet import build_fleet_server
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("resnet50").reduced()
@@ -54,6 +56,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
             get_codec("huffman").encode(torch.ones(3), 4)),
         lambda: build_edge_cloud_server(cfg, JaladConfig(), calib_batches=1,
                                         calib_batch_size=1),
+        lambda: build_fleet_server(cfg, JaladConfig(), [EDGE_TX2],
+                                   calib_batches=1, calib_batch_size=1),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
@@ -89,6 +93,13 @@ def test_wrappers_never_fall_back_for_other_devices():
                           lut.to(torch.uint8), 8, 128)
     with pytest.raises(ValueError):
         qops.pc_encode(torch.empty((1, 2, 8), device="meta"), 8, 0)
+    with pytest.raises(ValueError):
+        qops.minmax_blocks(meta)
+    with pytest.raises(ValueError):
+        qops.quantize_blocks(meta, torch.zeros((), device="meta"),
+                             torch.ones((), device="meta"), 8)
+    with pytest.raises(ValueError):
+        qops.pack4_blocks(torch.empty(8, dtype=torch.uint8, device="meta"))
     ranges = torch.zeros((1, 2), device="meta")
     with pytest.raises(ValueError):
         qops.pc_decode(torch.empty((1, 2, 2), dtype=torch.int32,
