@@ -12,11 +12,16 @@ NVIDIA card.
    batch 4, plus one odd-sized tensor, at 2, 4, 8 and 16 bits for the
    per-tensor kernels K1-K3; the same shapes and the ``gap`` boundary
    (4, 2048) at 2, 3, 4, 5, 8 and 16 bits for the per-channel K4 / K5,
-   whose B = 4 stacks must also equal four single calls. Codes, words and
-   ranges must be byte-identical, dequantized floats bit-identical
-   (float32 and bfloat16). Times are CUDA-event medians with the L2 cache
-   flushed before every call; the bound is the bytes the function must
-   move over 3.35 TB/s.
+   whose B = 4 stacks must also equal four single calls, and B = 3 stacks
+   of the odd shape for the decodes K2 / K5 (rows that start off every
+   16-byte boundary). Codes, words and ranges must be byte-identical,
+   dequantized floats bit-identical (float32 and bfloat16). Times are
+   CUDA-event medians with the L2 cache flushed before every call; the
+   bound is the bytes the function must move over 3.35 TB/s. At the stem
+   boundary, 8 bits, ``torch.profiler`` gives each kernel's warm time and
+   the device kernels a call runs, printed; K2 and K5 must run one. K5's
+   two variants are timed on either side of the run length at which
+   ``pc_decode`` picks the tiled one.
 3. Serves full-width ResNet-50 (random weights from a seed) through
    ``build_edge_cloud_server`` -> ``EdgeCloudServer.serve_batch`` with each
    of the three codecs pinned, then with all three in the tables, under a
@@ -63,6 +68,8 @@ to PATH.
 from __future__ import annotations
 
 import json
+import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -80,6 +87,8 @@ BITS = (2, 4, 8, 16)
 PC_SHAPES = {"stem": ((4, 64, 112, 112), 1), "res5": ((4, 2048, 7, 7), 1),
              "gap": ((4, 2048), 1), "odd": ((1, 3, 37, 41), 1)}
 PC_BITS = (2, 3, 4, 5, 8, 16)
+# Run lengths (``inner``) at which step 2 times both K5 variants.
+PC_SWEEP_INNER = (1, 4, 8, 16, 32, 49, 64, 256)
 CODECS = ("huffman", "bitpack", "perchannel")
 TRACE = (300e3, 3e6, 3e7, 1e9)     # bytes/s, one request each
 # Pipeline: a bandwidth step, served in micro-batches of 4 requests.
@@ -147,26 +156,57 @@ def device_ms(torch, fn, flush, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(torch, fn, reps: int = 20, tries: int = 3):
-    """Device time per call from ``torch.profiler``: the sum of every CUDA
-    kernel's own time over ``reps`` warm back-to-back calls (no L2 flush,
-    no gaps between launches), or None when the profiler sees no device
-    time in any of ``tries`` sessions (a session late in a long run has
-    come back empty on the H100)."""
+def profiled_ms(torch, fn, reps: int = 20, tries: int = 5):
+    """Warm device time per call from ``torch.profiler`` and the device
+    kernels a call runs: ``reps`` back-to-back calls (no L2 flush, no gaps
+    between launches) that start and end 10 ms inside the session; the
+    time is each kernel's mean own time times its launches a call, summed.
+    A session that saw no kernel, or lost calls' events (a count not a
+    whole multiple of ``reps``, seen on the H100), is taken again; after
+    ``tries`` sessions the last one's counts are rounded to whole launches
+    a call. ``(None, {})`` when no session saw a kernel."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in prof.key_averages())
-        if total > 0:
-            return total / reps / 1e3
-    return None
+            time.sleep(0.01)
+        count, own_us = Counter(), Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                count[e.name] += 1
+                own_us[e.name] += e.self_device_time_total
+        whole = all(v % reps == 0 for v in count.values())
+        if count and (whole or attempt == tries - 1):
+            per_call = {k: max(1, round(v / reps)) for k, v in count.items()}
+            return sum(own_us[k] / count[k] * per_call[k]
+                       for k in count) / 1e3, per_call
+    return None, {}
+
+
+def profile_rows(torch, rows, calls, one_kernel=()):
+    """Warm time and device kernels a call of each ``calls[kernel]``, into
+    that kernel's row; fails unless each kernel of ``one_kernel`` ran one
+    device kernel once a call."""
+    for r in rows:
+        fn = calls.get(r["kernel"])
+        if fn is None:
+            continue
+        r["profiled_ms"], r["device_kernels"] = profiled_ms(torch, fn)
+        print(f"  {r['kernel']} warm {r['profiled_ms']} ms a call; device "
+              f"kernels a call: {r['device_kernels']}")
+        if r["kernel"] in one_kernel:
+            check(list(r["device_kernels"].values()) == [1],
+                  f"{r['kernel']}: {r['device_kernels']} device kernels a "
+                  "call, not one")
 
 
 def bound_ms(nbytes: float) -> float:
@@ -186,6 +226,28 @@ def check_kernels(torch, results):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     worst = {"fused_encode": 0.0, "fused_decode": 0.0, "huffman_pack": 0.0}
+
+    def check_decode(label, bits, codes, mn, mx, n):
+        """K2 on the bitpack wire layout (packed nibbles at bits <= 4) and
+        the one-code-per-element layout of the Huffman decode."""
+        bsz = codes.shape[0]
+        step = dequant_step(mn, mx, bits)
+        layouts = [(codes, bits <= 4)]
+        if bits <= 4:
+            q = torch.stack([codes & 15, codes >> 4], -1).reshape(bsz, -1)
+            layouts.append((q[:, :n].contiguous(), False))
+        for cc, pk in layouts:
+            for dt, bits_view in ((torch.float32, torch.int32),
+                                  (torch.bfloat16, torch.int16)):
+                got = qops.fused_decode(cc, mn, mx, bits, n, pk, dt)
+                want = qref.fused_decode_ref(cc, mn, step, n, pk, dt)
+                err = (got.float() - want.float()).abs().max()
+                worst["fused_decode"] = max(worst["fused_decode"],
+                                            float(err))
+                check(torch.equal(got.view(bits_view),
+                                  want.view(bits_view)),
+                      f"K2 {label} B={bsz} {bits} {dt} packed={pk}")
+
     for label, shape in SHAPES.items():
         # Post-ReLU-like boundary: about half the values are exact zeros.
         x = torch.relu(torch.randn(shape, device=dev, generator=gen))
@@ -209,25 +271,9 @@ def check_kernels(torch, results):
                 plain_ms=device_ms(torch, lambda: qref.fused_encode_ref(
                     xb, bits), flush, reps=7),
                 bound_ms=bound_ms(4 * n + wire + 8), library_ms=None))
-            # K2, the bitpack wire layout (packed nibbles at bits <= 4) and
-            # the one-code-per-element layout of the Huffman decode.
             packed = bits <= 4
             step = dequant_step(mn, mx, bits)
-            layouts = [(codes, packed)]
-            if packed:
-                q = torch.stack([codes & 15, codes >> 4], -1).reshape(1, -1)
-                layouts.append((q[:, :n].contiguous(), False))
-            for cc, pk in layouts:
-                for dt, bits_view in ((torch.float32, torch.int32),
-                                      (torch.bfloat16, torch.int16)):
-                    got = qops.fused_decode(cc, mn, mx, bits, n, pk, dt)
-                    want = qref.fused_decode_ref(cc, mn, step, n, pk, dt)
-                    err = (got.float() - want.float()).abs().max()
-                    worst["fused_decode"] = max(worst["fused_decode"],
-                                                float(err))
-                    check(torch.equal(got.view(bits_view),
-                                      want.view(bits_view)),
-                          f"K2 {label} {bits} {dt} packed={pk}")
+            check_decode(label, bits, codes, mn, mx, n)
             lib = None
             if bits == 8:
                 mcol, scol = mn[:, None], step[:, None]
@@ -275,18 +321,24 @@ def check_kernels(torch, results):
                 bound_ms=bound_ms(4 * n + 8 + 5 * (1 << bits)
                                   + (total_bits + 7) // 8),
                 library_ms=None))
+            print(f"  {label:5s} {bits:2d} bits  " + "  ".join(
+                f"{r['kernel']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
+                f", bound {r['bound_ms']:.4f})" for r in rows[-3:]))
             if label == "stem" and bits == 8:
-                calls = {
+                profile_rows(torch, rows[-3:], {
                     "fused_encode": lambda: qops.fused_encode(xb, bits),
                     "fused_decode": lambda: qops.fused_decode(
                         codes, mn, mx, bits, n, packed),
                     "huffman_pack": lambda: eops.huffman_pack(
-                        xb, hmn, scale, clut, llut, bits, w_words)}
-                for r in rows[-3:]:
-                    r["profiled_ms"] = profiled_ms(torch, calls[r["kernel"]])
-            print(f"  {label:5s} {bits:2d} bits  " + "  ".join(
-                f"{r['kernel']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
-                f", bound {r['bound_ms']:.4f})" for r in rows[-3:]))
+                        xb, hmn, scale, clut, llut, bits, w_words)},
+                    one_kernel=("fused_decode",))
+    # A B = 3 stack of the odd shape: rows 2 and 3 start off every 16-byte
+    # boundary, in the codes and in the output.
+    n = math.prod(SHAPES["odd"])
+    xs = torch.relu(torch.randn((3, n), device=dev, generator=gen))
+    for bits in BITS:
+        codes, mn, mx = qops.fused_encode(xs, bits)
+        check_decode("odd", bits, codes, mn, mx, n)
     results["kernel_rows"] = rows
     results["max_abs_err"] = worst
     return rows, worst
@@ -303,6 +355,17 @@ def check_perchannel_kernels(torch, results):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     worst = {"pc_encode": 0.0, "pc_decode": 0.0}
+
+    def check_decode(label, bits, words, mn, mx, shape, axis):
+        """K5 in float32 and bfloat16."""
+        for dt, bits_view in ((torch.float32, torch.int32),
+                              (torch.bfloat16, torch.int16)):
+            got = qops.pc_decode(words, mn, mx, bits, shape, axis, dt)
+            want = qref.pc_decode_ref(words, mn, mx, bits, shape, axis, dt)
+            err = (got.float() - want.float()).abs().max()
+            worst["pc_decode"] = max(worst["pc_decode"], float(err))
+            check(torch.equal(got.view(bits_view), want.view(bits_view)),
+                  f"K5 {label} B={words.shape[0]} {bits} {dt}")
     for label, (shape, axis) in PC_SHAPES.items():
         stack = torch.relu(torch.randn((4,) + shape, device=dev,
                                        generator=gen))
@@ -317,15 +380,7 @@ def check_perchannel_kernels(torch, results):
             check(torch.equal(words, pw), f"K4 words {label} {bits}")
             check(torch.equal(mn, pmn) and torch.equal(mx, pmx),
                   f"K4 ranges {label} {bits}")
-            for dt, bits_view in ((torch.float32, torch.int32),
-                                  (torch.bfloat16, torch.int16)):
-                got = qops.pc_decode(words, mn, mx, bits, shape, axis, dt)
-                want = qref.pc_decode_ref(words, mn, mx, bits, shape, axis,
-                                          dt)
-                err = (got.float() - want.float()).abs().max()
-                worst["pc_decode"] = max(worst["pc_decode"], float(err))
-                check(torch.equal(got.view(bits_view), want.view(bits_view)),
-                      f"K5 {label} {bits} {dt}")
+            check_decode(label, bits, words, mn, mx, shape, axis)
             # A B = 4 stack against four single calls.
             sw, smn, smx = qops.pc_encode(stack, bits, axis)
             sout = qops.pc_decode(sw, smn, smx, bits, shape, axis)
@@ -368,16 +423,44 @@ def check_perchannel_kernels(torch, results):
                 plain_ms=device_ms(torch, lambda: qref.pc_decode_ref(
                     words, mn, mx, bits, shape, axis), flush, reps=7),
                 bound_ms=bound_ms(wire + 4 * n), library_ms=lib))
-            if label == "stem" and bits == 8:
-                calls = {
-                    "pc_encode": lambda: qops.pc_encode(xb, bits, axis),
-                    "pc_decode": lambda: qops.pc_decode(
-                        words, mn, mx, bits, shape, axis)}
-                for r in rows[-2:]:
-                    r["profiled_ms"] = profiled_ms(torch, calls[r["kernel"]])
             print(f"  {label:5s} {bits:2d} bits  " + "  ".join(
                 f"{r['kernel']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
                 f", bound {r['bound_ms']:.4f})" for r in rows[-2:]))
+            if label == "stem" and bits == 8:
+                profile_rows(torch, rows[-2:], {
+                    "pc_encode": lambda: qops.pc_encode(xb, bits, axis),
+                    "pc_decode": lambda: qops.pc_decode(
+                        words, mn, mx, bits, shape, axis)},
+                    one_kernel=("pc_decode",))
+    # A B = 3 stack of the odd shape: runs of 1,517 floats that start off
+    # every 16-byte boundary.
+    shape, axis = PC_SHAPES["odd"]
+    stack = torch.relu(torch.randn((3,) + shape, device=dev, generator=gen))
+    for bits in PC_BITS:
+        words, mn, mx = qops.pc_encode(stack, bits, axis)
+        check_decode("odd", bits, words, mn, mx, shape, axis)
+    # K5's two variants on either side of the threshold at which pc_decode
+    # picks the tiled one: (4, 2048, inner) samples, channel axis 1.
+    sweep = []
+    for inner in PC_SWEEP_INNER:
+        shape = (4, 2048, inner)
+        x = torch.relu(torch.randn((1,) + shape, device=dev, generator=gen))
+        words, mn, mx = qops.pc_encode(x, 8, 1)
+        want = qref.pc_decode_ref(words, mn, mx, 8, shape, 1)
+        t = {}
+        for tiled in (False, True):
+            def call(tiled=tiled):
+                return qops._pc_decode_cuda(words, mn, mx, 8, shape, 1,
+                                            torch.float32, tiled)
+            check(torch.equal(call(), want), f"K5 tiled={tiled} {shape}")
+            t[tiled] = device_ms(torch, call, flush)
+        sweep.append(dict(inner=inner, element_ms=t[False], tiled_ms=t[True],
+                          picked="tiled" if inner >= qops.PC_TILE_MIN_INNER
+                          else "element"))
+        print(f"  K5 variants at (4, 2048, {inner}): element "
+              f"{t[False]:.4f} ms, tiled {t[True]:.4f} ms; pc_decode picks "
+              f"{sweep[-1]['picked']}")
+    results["pc_decode_variants"] = sweep
     results["kernel_rows"] += rows
     results["max_abs_err"].update(worst)
     return rows, worst
@@ -436,7 +519,7 @@ def serve_main_path(torch, results):
     """Step 3: full-width ResNet-50 through the served JALAD path."""
     from repro_torch.config import JaladConfig, get_config
     from repro_torch.core.decoupler import DecoupledPlan, DecoupledRunner
-    from repro_torch.data.synthetic import make_batch
+    from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.models.bridge import params_to
     from repro_torch.serving.edge_cloud import (
@@ -458,6 +541,10 @@ def serve_main_path(torch, results):
           f"{cfg.num_classes}, {cfg.dtype}, calibration {calib_s:.1f} s")
     base = server.engine
     names = base.model.decoupling_points()
+    # One stream for the step: each make_batch call would rebuild the 1000
+    # class templates of 3 x 224 x 224 (seconds of host time).
+    batches = ImageStream(cfg.num_classes, 4, cfg.image_size,
+                          seed=100).batches(len(TRACE))
     served = []
     qops.reset_launch_counts()
     runs = [(codec, pinned_engine(base, codec)) for codec in CODECS]
@@ -465,7 +552,7 @@ def serve_main_path(torch, results):
     for label, engine in runs:
         srv = EdgeCloudServer(engine, params)
         for i, bw in enumerate(TRACE):
-            batch = make_batch(cfg, 4, 64, seed=100 + i)
+            batch = batches[i]
             t1 = time.perf_counter()
             logits, bd = srv.serve_batch(batch, bw)
             torch.cuda.synchronize()
@@ -528,7 +615,7 @@ def serve_main_path(torch, results):
 
 def serve_pipeline(torch, results, base, params):
     """Step 4: full-width ResNet-50 through the pipelined server."""
-    from repro_torch.data.synthetic import make_batch
+    from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.serving.pipeline import (
         PipelinedEdgeCloudServer,
@@ -539,15 +626,17 @@ def serve_pipeline(torch, results, base, params):
     names = base.model.decoupling_points()
     streams = [("all", base, 16)]
     streams += [(codec, pinned_engine(base, codec), 8) for codec in CODECS]
+    # One stream for the step, as in step 3.
+    batches = ImageStream(cfg.num_classes, 4, cfg.image_size, seed=200
+                          ).batches(max(n for _, _, n in streams))
     report = {}
     counts = dict.fromkeys(qops.launch_counts(), 0)
     for label, engine, n in streams:
         pipe = PipelinedEdgeCloudServer(engine, params,
                                         micro_batch=PIPE_MICRO)
         bws = [PIPE_STEP[0]] * (n // 2) + [PIPE_STEP[1]] * (n - n // 2)
-        reqs = [PipelineRequest(uid=i, batch=make_batch(cfg, 4, 64,
-                                                        seed=200 + i),
-                                bandwidth=bw) for i, bw in enumerate(bws)]
+        reqs = [PipelineRequest(uid=i, batch=batches[i], bandwidth=bw)
+                for i, bw in enumerate(bws)]
         # One serve() call per micro-batch: each call's requests are one
         # drained group, decided after every earlier transfer was observed.
         done = []
@@ -607,7 +696,7 @@ def check_threelaunch_kernels(torch, results, base, params):
     """Step 5: K6a, K6b, K6c against their plain versions, the chain against
     K1, then the chain's own path on a served boundary."""
     from repro_torch.core.quantization import affine_scale
-    from repro_torch.data.synthetic import make_batch
+    from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
     from repro_torch.models.api import batch_to
@@ -616,9 +705,12 @@ def check_threelaunch_kernels(torch, results, base, params):
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     point = base.model.decoupling_points().index(K6_POINT)
+    cfg = base.model.cfg
+    batch = ImageStream(cfg.num_classes, 4, cfg.image_size,
+                        seed=300).batches(1)[0]
     with torch.no_grad():
-        served = base.model.run_head(params, batch_to(make_batch(
-            base.model.cfg, 4, 64, seed=300), dev), point).contiguous()
+        served = base.model.run_head(params, batch_to(batch, dev),
+                                     point).contiguous()
     inputs = {label: torch.relu(torch.randn(shape, device=dev,
                                             generator=gen))
               for label, shape in SHAPES.items()}
@@ -712,15 +804,18 @@ def check_threelaunch_kernels(torch, results, base, params):
     # Warm device time per call at the stem boundary, 8 bits (K6c at 4).
     x = inputs["stem"]
     mn, mx = torch.amin(x), torch.amax(x)
+    scale8 = affine_scale(mn, mx, 8)
     calls = {"minmax_blocks": (None, lambda: qops.minmax_blocks(x)),
              "quantize_blocks": (8, lambda: qops.quantize_blocks(
-                 x, mn, affine_scale(mn, mx, 8), 8))}
+                 x, mn, scale8, 8))}
     codes4 = qops.quantize_blocks(x, mn, affine_scale(mn, mx, 4), 4)
     calls["pack4_blocks"] = (4, lambda: qops.pack4_blocks(codes4))
     for name, (bits, fn) in calls.items():
         r = next(r for r in rows if r["kernel"] == name
                  and r["shape"] == "stem" and r["bits"] == bits)
-        r["profiled_ms"] = profiled_ms(torch, fn)
+        r["profiled_ms"], r["device_kernels"] = profiled_ms(torch, fn)
+        print(f"  {name} warm {r['profiled_ms']} ms a call; device kernels "
+              f"a call: {r['device_kernels']}")
     # The chain's own path: the user's call on the served boundary, with
     # every counter set to 0 just before and read just after.
     qops.reset_launch_counts()
@@ -904,9 +999,14 @@ def main(argv=None) -> int:
     for name in build.SOURCES:
         log = (build.build_dir() / f"{name}.ptxas.txt")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+            text = log.read_text()
+            regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+            smem = [int(v) for v in re.findall(r"(\d+) bytes smem", text)]
+            spills = sum(int(v) for v in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", text))
+            print(f"  ptxas {name}: {len(regs)} kernels, registers "
+                  f"{min(regs, default=0)}-{max(regs, default=0)}, smem up to "
+                  f"{max(smem, default=0)} B, spill bytes {spills}")
     results["build_s"] = build_s
     step_s = results["step_s"] = {}
 
@@ -965,7 +1065,8 @@ def main(argv=None) -> int:
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
-            "warm_ms": r.get("profiled_ms")})
+            "warm_ms": r.get("profiled_ms"),
+            "device_kernels": r.get("device_kernels")})
     results["kernels"] = kernels
     if args.json:
         out = Path(args.json)

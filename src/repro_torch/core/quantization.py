@@ -64,15 +64,21 @@ def affine_scale(mn: torch.Tensor, mx: torch.Tensor, bits: int
     return torch.where(mx > mn, levels / (mx - mn), torch.zeros_like(mn))
 
 
+def dequant_recip(bits: int) -> float:
+    """``f32(1) / f32(2^c - 1)``, the float32 constant by which the decode
+    multiplies ``mx - mn`` to get the step (exactly representable as a
+    Python float). The CUDA decode kernels take it as an argument."""
+    return float(np.float32(1.0) / np.float32((1 << bits) - 1))
+
+
 def dequant_step(mn: torch.Tensor, mx: torch.Tensor, bits: int
                  ) -> torch.Tensor:
     """``(mx - mn) / (2^c - 1)`` as the reference's compiled decode
     evaluates it: XLA folds a division by a constant into a multiplication
-    by its float32 reciprocal, so the step is ``(mx - mn) * f32(1 / (2^c -
-    1))``. Both operands are tensors, so the product is one IEEE multiply
-    on every device."""
-    recip = float(np.float32(1.0) / np.float32((1 << bits) - 1))
-    return (mx - mn) * torch.full_like(mn, recip)
+    by its float32 reciprocal, so the step is ``(mx - mn) *``
+    :func:`dequant_recip`. Both operands are tensors, so the product is one
+    IEEE multiply on every device."""
+    return (mx - mn) * torch.full_like(mn, dequant_recip(bits))
 
 
 def _channel_view(v: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:

@@ -29,7 +29,11 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.quantization import affine_scale, dequant_step
+from repro_torch.core.quantization import (
+    affine_scale,
+    dequant_recip,
+    dequant_step,
+)
 from repro_torch.kernels import build
 from repro_torch.kernels.counters import (  # noqa: F401  (re-exported)
     bump,
@@ -73,7 +77,8 @@ def _fn(lib: str, name: str, argtypes):
     return fn
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 
 def _check_bits(bits: int) -> None:
@@ -117,38 +122,52 @@ def fused_encode(xb: torch.Tensor, bits: int
     return codes, mn, mx
 
 
+def _check_ranges(what: str, ref: torch.Tensor, shape, *ranges) -> None:
+    """Raise unless each range tensor has ``shape`` and lies on ``ref``'s
+    device: the kernels read them through pointers."""
+    for r in ranges:
+        if tuple(r.shape) != tuple(shape) or r.device != ref.device:
+            raise ValueError(f"{what}: ranges must be {tuple(shape)} on "
+                             f"{ref.device}, got {tuple(r.shape)} on "
+                             f"{r.device}")
+
+
 def fused_decode(codes: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
                  bits: int, n: int, packed: bool,
                  out_dtype=torch.float32) -> torch.Tensor:
     """K2 on a (B, W) code stack: (B, n) ``out_dtype`` activations. The
-    step is computed here in float32, outside the kernel, as the reference
-    does (:func:`repro_torch.core.quantization.dequant_step`)."""
-    mn = mn.to(torch.float32)
-    step = dequant_step(mn, mx.to(torch.float32), bits)
+    step is :func:`repro_torch.core.quantization.dequant_step` in float32,
+    as the reference computes it; the kernel computes it itself from
+    ``mn``, ``mx`` and :func:`dequant_recip`, so a CUDA call is one
+    launch."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got "
                          f"{out_dtype}")
+    mn = mn.to(torch.float32)
+    mx = mx.to(torch.float32)
     if codes.device.type == "cpu":
-        return ref.fused_decode_ref(codes, mn, step, n, packed, out_dtype)
+        return ref.fused_decode_ref(codes, mn, dequant_step(mn, mx, bits), n,
+                                    packed, out_dtype)
     _check_cuda(codes, "fused_decode")
     want = torch.uint8 if packed else code_dtype(bits)
     if codes.dtype != want:
         raise ValueError(f"fused_decode: codes must be {want} at {bits} "
                          f"bits, got {codes.dtype}")
     codes = codes.contiguous()
-    mn = mn.contiguous()
-    step = step.contiguous()
     bsz, in_n = codes.shape
-    if in_n < (-(-n // 2) if packed else n) or mn.numel() != bsz:
+    if in_n < (-(-n // 2) if packed else n):
         raise ValueError(f"fused_decode: {in_n} codes per sample cannot "
-                         f"hold {n} elements, or ranges are not ({bsz},)")
+                         f"hold {n} elements")
+    mn = mn.reshape(-1).contiguous()
+    mx = mx.reshape(-1).contiguous()
+    _check_ranges("fused_decode", codes, (bsz,), mn, mx)
     out = torch.empty((bsz, n), dtype=out_dtype, device=codes.device)
     mode = 0 if packed else (1 if bits <= 8 else 2)
     fn = _fn("quantize", "jalad_fused_decode",
-             [_P, _I, _I, _L, _L, _P, _P, _P, _I, _I, _P])
-    status = fn(_ptr(codes), mode, bsz, in_n, n, _ptr(mn), _ptr(step),
-                _ptr(out), int(out_dtype == torch.bfloat16),
-                _grid(n, bsz), _stream())
+             [_P, _I, _I, _L, _L, _P, _P, _F, _P, _I, _I, _P])
+    status = fn(_ptr(codes), mode, bsz, in_n, n, _ptr(mn), _ptr(mx),
+                dequant_recip(bits), _ptr(out),
+                int(out_dtype == torch.bfloat16), _GRID_TARGET, _stream())
     build.check(status, "fused_decode")
     bump("fused_decode")
     return out
@@ -284,12 +303,21 @@ def pc_encode(xb: torch.Tensor, bits: int, axis: int
     return words, mn, mx
 
 
+# K5 stages its words in shared memory (the tiled variant) where a
+# channel's output runs hold at least this many contiguous elements, and
+# decodes one element a thread below it: the crossover that
+# ``chip_smoke.py`` measures with both variants on (4, 2048, inner)
+# samples lay between inner = 49 and 64 on the H100.
+PC_TILE_MIN_INNER = 64
+
+
 def pc_decode(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
               bits: int, shape, axis: int,
               out_dtype=torch.float32) -> torch.Tensor:
     """K5: (B, C, W) words + (B, C) ranges -> (B, *shape) ``out_dtype``.
-    The step is computed here in float32, outside the kernel, as the
-    reference does (:func:`repro_torch.core.quantization.dequant_step`)."""
+    The step is :func:`repro_torch.core.quantization.dequant_step` per
+    channel, as the reference computes it; the kernel computes it itself,
+    so a CUDA call is one launch."""
     _check_bits(bits)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got "
@@ -297,26 +325,36 @@ def pc_decode(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
     shape = tuple(int(s) for s in shape)
     if words.device.type == "cpu":
         return ref.pc_decode_ref(words, mn, mx, bits, shape, axis, out_dtype)
+    inner = channel_dims(shape, axis)[2]
+    return _pc_decode_cuda(words, mn, mx, bits, shape, axis, out_dtype,
+                           inner >= PC_TILE_MIN_INNER)
+
+
+def _pc_decode_cuda(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+                    bits: int, shape, axis: int, out_dtype,
+                    tiled: bool) -> torch.Tensor:
+    """K5's launch, with the variant given (``pc_decode`` picks it)."""
     _check_cuda(words, "pc_decode")
     bsz, c, n_words = words.shape
     outer, c_shape, inner = channel_dims(shape, axis)
     n = outer * c * inner
     if (words.dtype != torch.int32 or c_shape != c
             or n_words != perchannel_words(outer * inner, bits)
-            or tuple(mn.shape) != (bsz, c) or tuple(mx.shape) != (bsz, c)
             or n == 0 or n >= 1 << 31):
         raise ValueError(f"pc_decode: words {tuple(words.shape)} "
-                         f"{words.dtype} and ranges {tuple(mn.shape)} do not "
-                         f"match shape {shape} at {bits} bits")
+                         f"{words.dtype} do not match shape {shape} at "
+                         f"{bits} bits")
     words = words.contiguous()
     mn = mn.to(torch.float32).contiguous()
-    step = dequant_step(mn, mx.to(torch.float32), bits).contiguous()
+    mx = mx.to(torch.float32).contiguous()
+    _check_ranges("pc_decode", words, (bsz, c), mn, mx)
     out = torch.empty((bsz,) + shape, dtype=out_dtype, device=words.device)
     fn = _fn("perchannel", "jalad_pc_decode",
-             [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P])
+             [_P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _I, _I, _I, _P])
     status = fn(_ptr(words), bsz, outer, c, inner, bits, n_words, _ptr(mn),
-                _ptr(step), _ptr(out), int(out_dtype == torch.bfloat16),
-                _grid(n, bsz), _stream())
+                _ptr(mx), dequant_recip(bits), _ptr(out),
+                int(out_dtype == torch.bfloat16), int(tiled), _GRID_TARGET,
+                _stream())
     build.check(status, "pc_decode")
     bump("pc_decode")
     return out

@@ -7,6 +7,8 @@ without a card. The file imports neither JAX nor the reference package
   python -m pytest -q -p no:cacheprovider --noconftest -m requires_cuda \
       tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -83,6 +85,128 @@ def test_wrappers_reject_wrong_code_dtype(cuda):
     mn = torch.zeros(1, device=cuda)
     with pytest.raises(ValueError):
         qops.fused_decode(codes, mn, mn, 12, 8, False)
+
+
+DECODE_BITS = (1, 2, 3, 4, 5, 8, 12, 16)
+
+
+def _ranges(rng, bsz, cuda):
+    """(bsz,) float32 ranges on the card, the last one empty when bsz > 1."""
+    mn = rng.standard_normal(bsz).astype(np.float32)
+    mx = (mn + np.abs(rng.standard_normal(bsz)) * 4).astype(np.float32)
+    if bsz > 1:
+        mx[-1] = mn[-1]
+    return torch.from_numpy(mn).to(cuda), torch.from_numpy(mx).to(cuda)
+
+
+@pytest.mark.parametrize("bits", DECODE_BITS)
+def test_fused_decode_vectors_and_edges_match_plain(cuda, bits):
+    """K2's vector body, its scalar head and tail, and codes that are not
+    16-byte aligned where the output is (odd n packed, longer rows), in
+    one launch, bit-identical to the plain version."""
+    rng = np.random.default_rng(bits)
+    for bsz in (1, 3):
+        for n in (1, 15, 4096, 4097):
+            mn, mx = _ranges(rng, bsz, cuda)
+            step = tq.dequant_step(mn, mx, bits)
+            q = rng.integers(0, 1 << bits, size=(bsz, n))
+            layouts = [(q, False)]
+            if bits <= 4:
+                qq = np.concatenate([q, q[:, :1]], 1) if n % 2 else q
+                layouts.append((qq[:, 0::2] | (qq[:, 1::2] << 4), True))
+            for codes, packed in layouts:
+                dtype = torch.uint8 if packed else qref.code_dtype(bits)
+                for extra in (0, 5):
+                    cc = torch.from_numpy(np.pad(codes, ((0, 0), (0, extra)))
+                                          .astype(np.int32)).to(cuda)
+                    cc = cc.to(dtype)
+                    for dt, view in ((torch.float32, torch.int32),
+                                     (torch.bfloat16, torch.int16)):
+                        with qops.count_launches() as box:
+                            got = qops.fused_decode(cc, mn, mx, bits, n,
+                                                    packed, dt)
+                        assert box.counts["fused_decode"] == 1
+                        want = qref.fused_decode_ref(cc, mn, step, n, packed,
+                                                     dt)
+                        assert torch.equal(got.view(view), want.view(view))
+    torch.cuda.synchronize()
+
+
+# Per-channel shapes with ``inner`` below, at and above K5's tiled-variant
+# threshold, runs that are not a multiple of four long, and runs longer
+# than one tile.
+PC_DECODE_CASES = [((2, 5, 4, 7), 1), ((9, 31), 0), ((4, 64), 1),
+                   ((2, 7, 33), 1), ((2, 4, 63), 1), ((2, 3, 64), 1),
+                   ((1, 3, 37, 41), 1), ((3, 2, 1100), 1), ((1, 2, 5000), 1)]
+
+
+@pytest.mark.parametrize("bits", DECODE_BITS)
+def test_pc_decode_variants_match_plain(cuda, bits):
+    """K5 in one launch, and each of its variants forced, bit-identical to
+    the plain version in float32 and bfloat16."""
+    for bsz in (1, 3):
+        for shape, axis in PC_DECODE_CASES:
+            x = torch.relu(torch.randn((bsz,) + shape, device=cuda))
+            x.select(axis + 1, 0).fill_(0.5)     # an empty range
+            words, mn, mx = qref.pc_encode_ref(x, bits, axis)
+            inner = qref.channel_dims(shape, axis)[2]
+            for dt, view in ((torch.float32, torch.int32),
+                             (torch.bfloat16, torch.int16)):
+                want = qref.pc_decode_ref(words, mn, mx, bits, shape, axis,
+                                          dt).view(view)
+                with qops.count_launches() as box:
+                    got = qops.pc_decode(words, mn, mx, bits, shape, axis, dt)
+                assert box.counts["pc_decode"] == 1
+                assert torch.equal(got.view(view), want)
+                for tiled in (False, True):
+                    forced = qops._pc_decode_cuda(words, mn, mx, bits, shape,
+                                                  axis, dt, tiled)
+                    assert torch.equal(forced.view(view), want), (
+                        shape, inner, tiled, dt)
+    torch.cuda.synchronize()
+
+
+def _device_kernels(fn, reps=4, tries=5):
+    """Device kernels a call of ``fn`` runs: name -> launches a call, over
+    ``reps`` calls. A profiler session that lost calls' events (counts not
+    whole multiples of ``reps``) is taken again; the last one's counts are
+    rounded."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        names = Counter(e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        if names and (all(v % reps == 0 for v in names.values())
+                      or attempt == tries - 1):
+            return {k: max(1, round(v / reps)) for k, v in names.items()}
+    return {}
+
+
+def test_decodes_run_one_device_kernel_a_call(cuda):
+    xb = torch.relu(torch.randn((3, 4551), device=cuda))
+    codes, mn, mx = qops.fused_encode(xb, 4)
+    kernels = _device_kernels(lambda: qops.fused_decode(codes, mn, mx, 4,
+                                                        4551, True))
+    assert list(kernels.values()) == [1], kernels
+    assert "dequant" in next(iter(kernels))
+    for shape in ((4, 3, 37, 41), (4, 123)):
+        xs = torch.relu(torch.randn((3,) + shape, device=cuda))
+        words, mn, mx = qops.pc_encode(xs, 8, 1)
+        kernels = _device_kernels(lambda: qops.pc_decode(words, mn, mx, 8,
+                                                         shape, 1))
+        assert list(kernels.values()) == [1], (shape, kernels)
+        assert "pc_decode" in next(iter(kernels))
 
 
 @pytest.mark.parametrize("bits", (2, 4, 8, 12, 16))

@@ -140,6 +140,32 @@ def test_codes_decode_bit_exact_batched(bits):
     np.testing.assert_array_equal(got1.numpy(), np.asarray(one))
 
 
+@pytest.mark.parametrize("bits", range(1, 17))
+def test_dequant_recip_matches_jitted_step(bits):
+    """The decode kernels get the step as ``(mx - mn) * dequant_recip``:
+    bit-identical to the reference's jitted ``(mx - mn) / levels`` on
+    wide, empty and negative ranges."""
+    import jax
+
+    rng = np.random.default_rng(100 + bits)
+    mn = (rng.standard_normal(256) * 10).astype(np.float32)
+    mx = (mn + np.abs(rng.standard_normal(256)) * 7).astype(np.float32)
+    mx[:16] = mn[:16]
+    mn[16:64] = -np.abs(mn[16:64]) - 1
+    mx[16:64] = mn[16:64] + np.abs(mn[16:64]) * rng.uniform(0, 1, 48)
+    levels = float((1 << bits) - 1)
+    want = np.asarray(jax.jit(lambda a, b: jnp.where(
+        levels > 0, (b - a) / levels, 0.0).astype(jnp.float32))(mn, mx))
+    tmn, tmx = torch.from_numpy(mn), torch.from_numpy(mx)
+    got = (tmx - tmn) * tq.dequant_recip(bits)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(
+        tq.dequant_step(tmn, tmx, bits).numpy().view(np.int32),
+        want.view(np.int32))
+
+
 def test_single_rounding_dequant_differs_from_eager_double_rounding():
     """The decode rounds once; an eager ``q * step + mn`` (two roundings)
     differs on a sizable share of codes."""
