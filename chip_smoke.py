@@ -19,9 +19,14 @@ NVIDIA card.
    CUDA-event medians with the L2 cache flushed before every call; the
    bound is the bytes the function must move over 3.35 TB/s. At the stem
    boundary, 8 bits, ``torch.profiler`` gives each kernel's warm time and
-   the device kernels a call runs, printed; K2 and K5 must run one. K5's
-   two variants are timed on either side of the run length at which
-   ``pc_decode`` picks the tiled one.
+   the device operations a call runs, printed; K2, K3, K4 and K5 must run
+   one kernel, K3 beside its one memset (the look-back scratch). K3
+   and K4 are also held in bfloat16; K3 on a (4, 4,194,304) stack of more
+   tiles than the card holds blocks (rows equal single calls) and on
+   synthetic tables (every code 8 bits, so tiles start on words; codes of
+   1 to 32 bits). K5's two variants are timed on either side of the run
+   length at which ``pc_decode`` picks the tiled one, K4's on either side
+   of the channel length past which ``pc_encode`` streams.
 3. Serves full-width ResNet-50 (random weights from a seed) through
    ``build_edge_cloud_server`` -> ``EdgeCloudServer.serve_batch`` with each
    of the three codecs pinned, then with all three in the tables, under a
@@ -89,6 +94,13 @@ PC_SHAPES = {"stem": ((4, 64, 112, 112), 1), "res5": ((4, 2048, 7, 7), 1),
 PC_BITS = (2, 3, 4, 5, 8, 16)
 # Run lengths (``inner``) at which step 2 times both K5 variants.
 PC_SWEEP_INNER = (1, 4, 8, 16, 32, 49, 64, 256)
+# Channel lengths, as shares of the staged limit (8 x PC_SHARE_MAX_FLOATS),
+# at which step 2 times both K4 variants; the limit plus 4 is streamed.
+PC_ENC_SWEEP = (1 / 64, 1 / 8, 1 / 2, 1)
+# K3: a stack of more tiles (4 x 1,024) than the card holds blocks at once,
+# and the memsets a call runs (the look-back scratch).
+K3_STRESS = (4, 4_194_304)
+K3_MEMSETS = 1
 CODECS = ("huffman", "bitpack", "perchannel")
 TRACE = (300e3, 3e6, 3e7, 1e9)     # bytes/s, one request each
 # Pipeline: a bandwidth step, served in micro-batches of 4 requests.
@@ -192,21 +204,26 @@ def profiled_ms(torch, fn, reps: int = 20, tries: int = 5):
     return None, {}
 
 
-def profile_rows(torch, rows, calls, one_kernel=()):
-    """Warm time and device kernels a call of each ``calls[kernel]``, into
-    that kernel's row; fails unless each kernel of ``one_kernel`` ran one
-    device kernel once a call."""
+def profile_rows(torch, rows, calls, one_kernel=(), memsets=None):
+    """Warm time and device operations a call of each ``calls[kernel]``,
+    into that kernel's row; fails unless each kernel of ``one_kernel`` ran
+    one device kernel once a call, beside exactly ``memsets[kernel]``
+    memsets (none where it is not named)."""
+    memsets = memsets or {}
     for r in rows:
         fn = calls.get(r["kernel"])
         if fn is None:
             continue
         r["profiled_ms"], r["device_kernels"] = profiled_ms(torch, fn)
         print(f"  {r['kernel']} warm {r['profiled_ms']} ms a call; device "
-              f"kernels a call: {r['device_kernels']}")
+              f"operations a call: {r['device_kernels']}")
         if r["kernel"] in one_kernel:
-            check(list(r["device_kernels"].values()) == [1],
-                  f"{r['kernel']}: {r['device_kernels']} device kernels a "
-                  "call, not one")
+            ops = r["device_kernels"]
+            kernels = [v for k, v in ops.items() if not k.startswith("Memset")]
+            sets = sum(v for k, v in ops.items() if k.startswith("Memset"))
+            check(kernels == [1] and sets == memsets.get(r["kernel"], 0),
+                  f"{r['kernel']}: {ops} device operations a call, not one "
+                  f"kernel and {memsets.get(r['kernel'], 0)} memsets")
 
 
 def bound_ms(nbytes: float) -> float:
@@ -311,6 +328,18 @@ def check_kernels(torch, results):
                     ">u4").tobytes()[: (total_bits + 7) // 8]
                 check(payload[6 + (1 << bits):] == stream,
                       f"K3 payload {label} {bits}")
+            # The bf16 input the wrapper also takes, on its own tables.
+            xh = xb.to(torch.bfloat16)
+            hh, hhmn, _, hscale = eops._hist_ranges(xh, bits)
+            ht = eops._sample_table(hh.cpu().numpy()[0], 1 << bits)
+            check(ht is not None, "K3 bf16 table routed to the host")
+            hargs = (xh, hhmn, hscale,
+                     torch.from_numpy(ht[0].view("int32")[None]).to(dev),
+                     torch.from_numpy(ht[1][None]).to(dev), bits,
+                     eops._w_words(ht[3]))
+            check(torch.equal(eops.huffman_pack(*hargs),
+                              eops.huffman_pack_ref(*hargs)),
+                  f"K3 bf16 {label} {bits}")
             rows.append(dict(
                 kernel="huffman_pack", shape=label, bits=bits,
                 ms=device_ms(torch, lambda: eops.huffman_pack(
@@ -331,7 +360,8 @@ def check_kernels(torch, results):
                         codes, mn, mx, bits, n, packed),
                     "huffman_pack": lambda: eops.huffman_pack(
                         xb, hmn, scale, clut, llut, bits, w_words)},
-                    one_kernel=("fused_decode",))
+                    one_kernel=("fused_decode", "huffman_pack"),
+                    memsets={"huffman_pack": K3_MEMSETS})
     # A B = 3 stack of the odd shape: rows 2 and 3 start off every 16-byte
     # boundary, in the codes and in the output.
     n = math.prod(SHAPES["odd"])
@@ -339,9 +369,73 @@ def check_kernels(torch, results):
     for bits in BITS:
         codes, mn, mx = qops.fused_encode(xs, bits)
         check_decode("odd", bits, codes, mn, mx, n)
+    rows += check_pack_stress(torch, gen, flush, worst)
     results["kernel_rows"] = rows
     results["max_abs_err"] = worst
     return rows, worst
+
+
+def check_pack_stress(torch, gen, flush, worst):
+    """K3 past the card's resident blocks, and on synthetic tables: a
+    (4, 4,194,304) stack (4,096 tiles) whose rows must equal single calls;
+    codes all 8 bits long (every tile's bit count a multiple of 32, so
+    tiles start on words) and of random lengths 1 to 32 bits, at the stem
+    size. Returns the stress stack's timed row."""
+    import numpy as np
+
+    from repro_torch.kernels.entropy import ops as eops
+
+    dev = torch.device("cuda")
+    bits = 8
+    xb = torch.relu(torch.randn(K3_STRESS, device=dev, generator=gen))
+    hist, mn, _, scale = eops._hist_ranges(xb, bits)
+    tables = [eops._sample_table(h, 1 << bits) for h in hist.cpu().numpy()]
+    check(all(t is not None for t in tables), "K3 stress routed to the host")
+    totals = [t[3] for t in tables]
+    w_words = eops._w_words(max(totals))
+    clut = torch.from_numpy(np.stack([t[0] for t in tables]).view(
+        np.int32)).to(dev)
+    llut = torch.from_numpy(np.stack([t[1] for t in tables])).to(dev)
+    args = (xb, mn, scale, clut, llut, bits, w_words)
+    words = eops.huffman_pack(*args)
+    want = eops.huffman_pack_ref(*args)
+    worst["huffman_pack"] = max(worst["huffman_pack"],
+                                float((words != want).sum()))
+    check(torch.equal(words, want), "K3 stress stack")
+    for b, total in enumerate(totals):
+        one = eops.huffman_pack(xb[b:b + 1], mn[b:b + 1], scale[b:b + 1],
+                                clut[b:b + 1], llut[b:b + 1], bits,
+                                eops._w_words(total))
+        k = -(-total // 32)
+        check(torch.equal(one[0, :k], words[b, :k]),
+              f"K3 stress row {b} differs from its single call")
+    n = xb.shape[1]
+    row = dict(kernel="huffman_pack", shape="stress", bits=bits,
+               ms=device_ms(torch, lambda: eops.huffman_pack(*args), flush),
+               plain_ms=device_ms(torch, lambda: eops.huffman_pack_ref(*args),
+                                  flush, reps=3),
+               bound_ms=bound_ms(xb.numel() * 4 + 8 * len(totals)
+                                 + 5 * len(totals) * (1 << bits)
+                                 + sum((t + 7) // 8 for t in totals)),
+               library_ms=None)
+    print(f"  K3 stress {K3_STRESS} 8 bits ({len(totals) * -(-n // 4096)} "
+          f"tiles): {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+          f"{row['bound_ms']:.4f})")
+    rng = np.random.default_rng(7)
+    x1 = xb[:1, :math.prod(SHAPES["stem"])]
+    for label, lens in (("all 8", np.full(256, 8)),
+                        ("1 to 32", rng.integers(1, 33, 256))):
+        codes = rng.integers(0, 1 << 32, size=256, dtype=np.uint64)
+        codes &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+        sargs = (x1, mn[:1], scale[:1],
+                 torch.from_numpy(codes.astype(np.uint32).view(np.int32)[
+                     None]).to(dev),
+                 torch.from_numpy(lens.astype(np.uint8)[None]).to(dev), bits,
+                 eops._w_words(32 * x1.shape[1]))
+        check(torch.equal(eops.huffman_pack(*sargs),
+                          eops.huffman_pack_ref(*sargs)),
+              f"K3 synthetic code lengths {label}")
+    return [row]
 
 
 def check_perchannel_kernels(torch, results):
@@ -380,6 +474,11 @@ def check_perchannel_kernels(torch, results):
             check(torch.equal(words, pw), f"K4 words {label} {bits}")
             check(torch.equal(mn, pmn) and torch.equal(mx, pmx),
                   f"K4 ranges {label} {bits}")
+            xh = xb.to(torch.bfloat16)
+            check(all(torch.equal(a, b) for a, b in zip(
+                qops.pc_encode(xh, bits, axis),
+                qref.pc_encode_ref(xh, bits, axis))),
+                f"K4 bf16 {label} {bits}")
             check_decode(label, bits, words, mn, mx, shape, axis)
             # A B = 4 stack against four single calls.
             sw, smn, smx = qops.pc_encode(stack, bits, axis)
@@ -431,7 +530,7 @@ def check_perchannel_kernels(torch, results):
                     "pc_encode": lambda: qops.pc_encode(xb, bits, axis),
                     "pc_decode": lambda: qops.pc_decode(
                         words, mn, mx, bits, shape, axis)},
-                    one_kernel=("pc_decode",))
+                    one_kernel=("pc_encode", "pc_decode"))
     # A B = 3 stack of the odd shape: runs of 1,517 floats that start off
     # every 16-byte boundary.
     shape, axis = PC_SHAPES["odd"]
@@ -461,6 +560,34 @@ def check_perchannel_kernels(torch, results):
               f"{t[False]:.4f} ms, tiled {t[True]:.4f} ms; pc_decode picks "
               f"{sweep[-1]['picked']}")
     results["pc_decode_variants"] = sweep
+    # K4's two variants on either side of the channel length past which a
+    # cluster of 8 cannot stage its shares: (2, length) samples, channel
+    # axis 0, 8 bits. Above it only the streaming variant runs.
+    limit = qops.PC_MAX_CLUSTER * qops.PC_SHARE_MAX_FLOATS
+    sweep = []
+    for length in [int(limit * f) for f in PC_ENC_SWEEP] + [limit + 4]:
+        x = torch.relu(torch.randn((1, 2, length), device=dev, generator=gen))
+        want = qref.pc_encode_ref(x, 8, 0)
+        t = {}
+        for staged in (True, False):
+            if staged and length > limit:
+                continue
+            def call(staged=staged):
+                return qops._pc_encode_cuda(x, 8, 0, staged)
+            check(all(torch.equal(a, b) for a, b in zip(call(), want)),
+                  f"K4 staged={staged} length {length}")
+            t[staged] = device_ms(torch, call, flush)
+        plan = qops.pc_encode_plan(1, 2, length, 8)
+        sweep.append(dict(length=length, cluster=plan.cluster,
+                          staged_ms=t.get(True), streaming_ms=t[False],
+                          bound_ms=bound_ms(4 * 2 * length + 2 * length + 16),
+                          picked="staged" if plan.staged else "streaming"))
+        staged_txt = (f"{t[True]:.4f} ms" if True in t
+                      else "does not fit")
+        print(f"  K4 variants at (2, {length}): staged {staged_txt}, "
+              f"streaming {t[False]:.4f} ms; pc_encode picks "
+              f"{sweep[-1]['picked']} (cluster {plan.cluster})")
+    results["pc_encode_variants"] = sweep
     results["kernel_rows"] += rows
     results["max_abs_err"].update(worst)
     return rows, worst

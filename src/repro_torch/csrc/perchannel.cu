@@ -24,13 +24,33 @@
 //
 // Bound on this card: bytes. A few integer and float operations per element
 // against 4 bytes read, so the least time is (4 * elements + 4 * words +
-// 8 * channels) / 3.35 TB/s. K4 is one launch, one block per (b, c): the
-// block reduces its channel's range, then packs its words, one thread per
-// word reading that word's 32 / c elements. The channel is read twice, the
-// second time mostly from L2 (a stem channel is 200 KB). At B * C < 132
-// blocks (the stem boundary of one request has 64 channels) the card is
-// not full; a later change may split a channel over several blocks. K5 is
-// one launch and one pass in two variants, picked by the host from inner.
+// 8 * channels) / 3.35 TB/s.
+//
+// K4 is one launch that reads the input once, a thread block cluster
+// (Hopper) per (b, c). One block per channel left the card half empty where
+// B * C is small (the stem boundary of one request has 64 channels on 132
+// SMs), and a range pass followed by a pack pass read every channel twice.
+// So the host picks a cluster of 1-8 blocks (the portable sizes) that
+// brings B * C * cluster to about 528 blocks, each with at least 2048
+// elements: 8 at the stem boundary, 1 where C >= 1000 (res5, gap, fc) or
+// channels are short, and a cluster of 1 is a plain launch (on the H100 a
+// cluster launch of single blocks ran res5 and gap twice as slow). The channel's W words are split into
+// `cluster` contiguous shares (rank r takes words [r * W / cluster,
+// (r + 1) * W / cluster)), so every share starts on a word and no word
+// straddles two blocks. Each block loads its share once into shared memory
+// (16-byte loads where the runs allow them) and reduces its own (min, max);
+// after a cluster.sync() every block reads the others' through distributed
+// shared memory (cluster.map_shared_rank), packs its share from shared
+// memory, a thread a word, with coalesced word stores, and rank 0 writes the
+// range. The share sits in shared memory with one spare float every 32, so
+// the pack's reads, k = 32 / c floats apart between lanes, fall at most two
+// to a bank (16 to a bank at 2 bits without the spare). Where a channel is
+// too long for the cluster to hold (more than 8 shares of the host's
+// PC_SHARE_MAX_FLOATS), a second variant reduces the range in a first read
+// and then re-reads its share from L2 for the pack, a tile of shared memory
+// at a time. The host picks the variant by size.
+//
+// K5 is one launch and one pass in two variants, picked by the host from inner.
 // Where a channel's output runs are long (the NCHW stem and res5
 // boundaries: 12,544 and 49 contiguous floats) a warp owns a piece of one
 // run: its words are staged once in shared memory, the index arithmetic
@@ -44,9 +64,12 @@
 // (never contracted, never fast-math) and rintf (round half to even, as
 // jnp.round), so words are bit-identical to the reference; the decode uses
 // one fmaf, as the reference's jitted decode rounds once.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -102,60 +125,168 @@ __device__ __forceinline__ void block_minmax(float& lo, float& hi) {
   hi = s_hi[0];
 }
 
-// K4: grid (C, B), blockDim a multiple of 32. x is the (B, outer, C, inner)
-// float32 stack; words (B, C, W); mn / mx (B, C).
+// K4's shared layout: element a of a tile at a + a / 32, one spare float
+// every 32, so the pack's stride-k reads fall at most two to a bank.
+__device__ __forceinline__ unsigned pad_idx(unsigned a) { return a + (a >> 5); }
+// A tile's element l sits at a = l - e0 + kLead: the 16-byte loads start up
+// to three elements before e0.
+constexpr unsigned kLead = 32;
+
+// Channel elements [e0, e1) of xs (channel c of sample b, read through the
+// (outer, C, inner) strides) into lo / hi, and, with STORE, into s. With vec
+// (inner % 4 == 0 and x 16-byte aligned) a thread takes aligned quads, each
+// inside one run of the channel; quads reach up to three elements past each
+// end of [e0, e1), all inside the channel, which leaves the channel's range
+// unchanged.
+template <bool STORE>
+__device__ __forceinline__ void load_share(const float* __restrict__ xs,
+                                           unsigned e0, unsigned e1,
+                                           unsigned inner, FastDiv by_inner,
+                                           long long row, bool vec,
+                                           float* s, float& lo, float& hi) {
+  if (vec) {
+    const unsigned q1 = (e1 + 3) >> 2;
+#pragma unroll 4
+    for (unsigned q = (e0 >> 2) + threadIdx.x; q < q1; q += blockDim.x) {
+      const unsigned l = q << 2;
+      const unsigned o = fdiv(l, by_inner);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          xs + o * row + (l - o * inner)));
+      lo = fminf(lo, fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
+      hi = fmaxf(hi, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      if (STORE) {
+        const unsigned a = l + kLead - e0;
+        s[pad_idx(a)] = v.x;
+        s[pad_idx(a + 1)] = v.y;
+        s[pad_idx(a + 2)] = v.z;
+        s[pad_idx(a + 3)] = v.w;
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (unsigned l = e0 + threadIdx.x; l < e1; l += blockDim.x) {
+      const unsigned o = fdiv(l, by_inner);
+      const float v = xs[o * row + (l - o * inner)];
+      lo = fminf(lo, v);
+      hi = fmaxf(hi, v);
+      if (STORE) s[pad_idx(l + kLead - e0)] = v;
+    }
+  }
+}
+
+// Words [w0, w1) of the channel from the tile in s, which starts at
+// element w0 * k: a thread a word, 32 / BITS codes each.
 template <int BITS>
-__global__ void pc_encode_kernel(const float* __restrict__ x, int outer,
-                                 int channels, int inner, FastDiv by_inner,
-                                 float* __restrict__ mn_out,
-                                 float* __restrict__ mx_out,
-                                 uint32_t* __restrict__ words, int n_words) {
-  constexpr int kPerWord = 32 / BITS;
-  const int c = blockIdx.x;
+__device__ __forceinline__ void pack_share(const float* s, unsigned w0,
+                                           unsigned w1, unsigned length,
+                                           float lo, float scale,
+                                           uint32_t* __restrict__ out) {
+  constexpr unsigned kPerWord = 32 / BITS;
+  const float levels = static_cast<float>((1u << BITS) - 1u);
+  for (unsigned w = w0 + threadIdx.x; w < w1; w += blockDim.x) {
+    const unsigned l0 = w * kPerWord;
+    const unsigned a0 = (w - w0) * kPerWord + kLead;
+    uint32_t word = 0;
+#pragma unroll
+    for (unsigned k = 0; k < kPerWord; ++k) {
+      if (l0 + k < length) {
+        float q = rintf(__fmul_rn(__fsub_rn(s[pad_idx(a0 + k)], lo), scale));
+        q = fminf(fmaxf(q, 0.0f), levels);
+        word |= static_cast<uint32_t>(q) << (k * BITS);
+      }
+    }
+    out[w] = word;
+  }
+}
+
+// K4: grid (C * cs, B) in clusters of (cs, 1, 1) (a plain launch when cs
+// is 1); rank r of the cluster of (b, c) owns words [r * W / cs,
+// (r + 1) * W / cs) of the channel. x is the (B, outer, C, inner) float32
+// stack; words (B, C, W); mn / mx (B, C). STAGED: the share stays in
+// dynamic shared memory from the one read; otherwise tiles of tile_words
+// words are re-read for the pack.
+template <int BITS, bool STAGED>
+__global__ void __launch_bounds__(256)
+pc_encode_kernel(const float* __restrict__ x, int outer, int channels,
+                 int inner, FastDiv by_inner, int vec, unsigned cs,
+                 unsigned tile_words, float* __restrict__ mn_out,
+                 float* __restrict__ mx_out, uint32_t* __restrict__ words,
+                 int n_words) {
+  constexpr unsigned kPerWord = 32 / BITS;
+  extern __shared__ float s_x[];
+  __shared__ float s_range[2];
+  __shared__ float s_all[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cs > 1 ? cluster.block_rank() : 0u;
+  const int c = blockIdx.x / cs;
   const int b = blockIdx.y;
   const unsigned length = static_cast<unsigned>(outer) * inner;
   const long long row = static_cast<long long>(channels) * inner;
   const float* xs = x + static_cast<long long>(b) * outer * row +
                     static_cast<long long>(c) * inner;
+  const unsigned w0 = static_cast<unsigned>(
+      static_cast<unsigned long long>(rank) * n_words / cs);
+  const unsigned w1 = static_cast<unsigned>(
+      static_cast<unsigned long long>(rank + 1) * n_words / cs);
+  const unsigned e0 = w0 * kPerWord;
+  const unsigned e1 = min(w1 * kPerWord, length);
 
   float lo = INFINITY;
   float hi = -INFINITY;
-#pragma unroll 4
-  for (unsigned l = threadIdx.x; l < length; l += blockDim.x) {
-    const unsigned o = fdiv(l, by_inner);
-    const float v = xs[o * row + (l - o * inner)];
-    lo = fminf(lo, v);
-    hi = fmaxf(hi, v);
-  }
+  if (e0 < e1)
+    load_share<STAGED>(xs, e0, e1, inner, by_inner, row, vec, s_x, lo, hi);
   block_minmax(lo, hi);
-  const long long bc = static_cast<long long>(b) * channels + c;
-  if (threadIdx.x == 0) {
+  if (cs > 1) {
+    if (threadIdx.x == 0) {
+      s_range[0] = lo;
+      s_range[1] = hi;
+    }
+    cluster.sync();
+    if (threadIdx.x < 32) {
+      lo = INFINITY;
+      hi = -INFINITY;
+      if (threadIdx.x < cs) {
+        const float* r = cluster.map_shared_rank(s_range, threadIdx.x);
+        lo = r[0];
+        hi = r[1];
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      if (threadIdx.x == 0) {
+        s_all[0] = lo;
+        s_all[1] = hi;
+      }
+    }
+    __syncthreads();
+    lo = s_all[0];
+    hi = s_all[1];
+  }
+  if (rank == 0 && threadIdx.x == 0) {
+    const long long bc = static_cast<long long>(b) * channels + c;
     mn_out[bc] = lo;
     mx_out[bc] = hi;
   }
   const float levels = static_cast<float>((1u << BITS) - 1u);
   const float scale = hi > lo ? __fdiv_rn(levels, __fsub_rn(hi, lo)) : 0.0f;
 
-  uint32_t* out = words + bc * n_words;
-  for (int w = threadIdx.x; w < n_words; w += blockDim.x) {
-    const unsigned l0 = static_cast<unsigned>(w) * kPerWord;
-    unsigned o = fdiv(l0, by_inner);
-    unsigned i = l0 - o * inner;
-    uint32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < kPerWord; ++k) {
-      if (l0 + k < length) {
-        float q = rintf(__fmul_rn(__fsub_rn(xs[o * row + i], lo), scale));
-        q = fminf(fmaxf(q, 0.0f), levels);
-        word |= static_cast<uint32_t>(q) << (k * BITS);
-      }
-      if (++i == static_cast<unsigned>(inner)) {
-        i = 0;
-        ++o;
-      }
+  uint32_t* out = words + (static_cast<long long>(b) * channels + c) * n_words;
+  if (STAGED) {
+    pack_share<BITS>(s_x, w0, w1, length, lo, scale, out);
+  } else {
+    for (unsigned t0 = w0; t0 < w1; t0 += tile_words) {
+      const unsigned t1 = min(t0 + tile_words, w1);
+      float tlo = 0.0f, thi = 0.0f;  // not used
+      load_share<true>(xs, t0 * kPerWord, min(t1 * kPerWord, length), inner,
+                       by_inner, row, vec, s_x, tlo, thi);
+      __syncthreads();
+      pack_share<BITS>(s_x, t0, t1, length, lo, scale, out);
+      __syncthreads();
     }
-    out[w] = word;
   }
+  // No block may leave while another can still read its s_range.
+  if (cs > 1) cluster.sync();
 }
 
 __device__ __forceinline__ void store_out(float* p, long long i, float v) {
@@ -300,13 +431,58 @@ pc_decode_tiled_kernel(const uint32_t* __restrict__ words, int channels,
   }
 }
 
+template <int BITS, bool STAGED>
+int launch_encode_variant(const float* x, int batch, int outer, int channels,
+                          int inner, float* mn, float* mx, uint32_t* words,
+                          int n_words, int threads, int cluster,
+                          unsigned tile_words, int smem_bytes,
+                          cudaStream_t stream) {
+  auto kernel = pc_encode_kernel<BITS, STAGED>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int vec = inner % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const unsigned cs = static_cast<unsigned>(cluster);
+  if (cluster == 1) {
+    // A plain launch: a cluster launch of single blocks schedules slower.
+    kernel<<<dim3(channels, batch), threads, smem_bytes, stream>>>(
+        x, outer, channels, inner, make_fastdiv(inner), vec, cs, tile_words,
+        mn, mx, words, n_words);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(channels) * cluster, batch, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, x, outer, channels, inner, make_fastdiv(inner), vec, cs,
+      tile_words, mn, mx, words, n_words);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BITS>
 int launch_encode(const float* x, int batch, int outer, int channels,
                   int inner, float* mn, float* mx, uint32_t* words,
-                  int n_words, int threads, cudaStream_t stream) {
-  pc_encode_kernel<BITS><<<dim3(channels, batch), threads, 0, stream>>>(
-      x, outer, channels, inner, make_fastdiv(inner), mn, mx, words, n_words);
-  return static_cast<int>(cudaGetLastError());
+                  int n_words, int threads, int cluster, int staged,
+                  unsigned tile_words, int smem_bytes, cudaStream_t stream) {
+  if (staged)
+    return launch_encode_variant<BITS, true>(
+        x, batch, outer, channels, inner, mn, mx, words, n_words, threads,
+        cluster, tile_words, smem_bytes, stream);
+  return launch_encode_variant<BITS, false>(
+      x, batch, outer, channels, inner, mn, mx, words, n_words, threads,
+      cluster, tile_words, smem_bytes, stream);
 }
 
 template <int BITS, typename OutT>
@@ -372,17 +548,26 @@ int decode_dispatch(const uint32_t* words, int batch, int outer,
 extern "C" {
 
 // K4: x (B, outer, C, inner) f32 -> words (B, C, n_words) u32, mn / mx
-// (B, C) f32. One launch of B * C blocks of `threads` (a multiple of 32,
-// at most 1024).
+// (B, C) f32. One launch of B * C clusters of `cluster` (1-8; 1 is a plain
+// launch) blocks of
+// `threads` (a multiple of 32, at most 256) with smem_bytes of dynamic
+// shared memory: the share of each block (staged = 1) or a tile of
+// tile_words words (staged = 0). The host sizes all of them
+// (kernels/quantize/ops.py pc_encode_plan).
 int jalad_pc_encode(const float* x, int batch, int outer, int channels,
                     int inner, int bits, float* mn, float* mx, void* words,
-                    int n_words, int threads, void* stream) {
+                    int n_words, int threads, int cluster, int staged,
+                    int tile_words, int smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* w = static_cast<uint32_t*>(words);
+  if (cluster < 1 || cluster > 8 || threads < 32 || threads > 256 ||
+      tile_words < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define PC_ENCODE_CASE(B)                                                    \
   case B:                                                                    \
     return launch_encode<B>(x, batch, outer, channels, inner, mn, mx, w,     \
-                            n_words, threads, s);
+                            n_words, threads, cluster, staged,               \
+                            static_cast<unsigned>(tile_words), smem_bytes, s);
   switch (bits) {
     PC_ENCODE_CASE(1) PC_ENCODE_CASE(2) PC_ENCODE_CASE(3) PC_ENCODE_CASE(4)
     PC_ENCODE_CASE(5) PC_ENCODE_CASE(6) PC_ENCODE_CASE(7) PC_ENCODE_CASE(8)

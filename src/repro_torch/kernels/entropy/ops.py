@@ -9,10 +9,11 @@
   lookup tables, and each sample's exact ``total_bits`` is known before
   the pack launches.
 * **Phase 2 — K3** (``csrc/huffman_pack.cu``, :func:`huffman_pack`):
-  re-quantize, table gather, prefix sum of the code lengths across blocks,
-  emission into u32 words. Each word row written big-endian and trimmed to
-  ``ceil(total_bits / 8)`` bytes is the host encoder's bitstream, byte for
-  byte.
+  one pass over ``HUFFMAN_CHUNK``-element tiles: re-quantize, table
+  gather, prefix sum of the code lengths across tiles by a decoupled
+  look-back, emission into u32 words. Each word row written big-endian and
+  trimmed to ``ceil(total_bits / 8)`` bytes is the host encoder's
+  bitstream, byte for byte.
 
 Routing is the reference's, kept exactly: a sample with a code longer than
 ``PACK_MAX_CODE_BITS`` or a stream past ``_MAX_TOTAL_BITS`` (and a batch
@@ -20,7 +21,8 @@ whose padded word grid passes it) makes :func:`huffman_encode_batch_device`
 return ``None``, and the codec encodes on the host instead. That is a
 semantic route of the codec, not a kernel fallback; the
 ``huffman_host_route`` counter counts it. ``huffman_pack`` counts K3's CUDA
-kernel launches (three per call).
+kernel launches: one a call (after one memset, of the look-back
+scratch).
 """
 from __future__ import annotations
 
@@ -41,6 +43,13 @@ PACK_MAX_CODE_BITS = 32
 _MAX_TOTAL_BITS = (1 << 31) - 1
 # Word-grid width quantum of the reference (its routing check depends on it).
 _LANES = 128
+# K3's tile: elements a block packs (``kChunk`` in csrc/huffman_pack.cu).
+HUFFMAN_CHUNK = 4096
+# Words a tile's shared buffer holds: every code at its longest, plus one
+# partial word when the tile starts inside a word, rounded to 16 bytes.
+_TILE_WORDS = -(-(HUFFMAN_CHUNK * PACK_MAX_CODE_BITS // 32 + 1) // 4) * 4
+# Tables staged in shared memory up to this many symbols (12 bits).
+_STAGE_SYMBOLS = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +141,22 @@ def huffman_pack_ref(xb: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
                        words).to(torch.int32)
 
 
+def pack_plan(bsz: int, n: int, bits: int) -> Tuple[int, int, int]:
+    """K3's launch geometry for a (B, n) stack: ``(chunks, scratch_len,
+    smem_bytes)``: tiles a sample, u64 scratch (the ticket, then a
+    look-back descriptor and the last 32 stream bits of each tile) and
+    dynamic shared memory a block (the tile's word buffer, then the staged
+    tables up to 12 bits)."""
+    chunks = max(1, -(-n // HUFFMAN_CHUNK))
+    tiles = bsz * chunks
+    if tiles >= 1 << 31:
+        raise ValueError(f"huffman_pack: {tiles} tiles exceed the grid")
+    symbols = 1 << bits
+    smem = 4 * _TILE_WORDS + (5 * symbols if symbols <= _STAGE_SYMBOLS
+                              else 0)
+    return chunks, 1 + 2 * tiles, smem
+
+
 def huffman_pack(xb: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
                  code_lut: torch.Tensor, len_lut: torch.Tensor, bits: int,
                  w_words: int) -> torch.Tensor:
@@ -157,26 +182,33 @@ def huffman_pack(xb: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
     chunk_fn = lib.jalad_huffman_chunk
     chunk_fn.argtypes = []
     chunk_fn.restype = ctypes.c_int
-    chunks = max(1, -(-n // chunk_fn()))
+    if chunk_fn() != HUFFMAN_CHUNK:
+        raise RuntimeError("huffman_pack: the library's tile is not "
+                           f"{HUFFMAN_CHUNK} elements")
+    chunks, scratch_len, smem = pack_plan(bsz, n, bits)
     dev = xb.device
     tensors = [t.contiguous() for t in (mn.to(torch.float32),
                                         scale.to(torch.float32),
                                         code_lut.to(torch.int32),
                                         len_lut.to(torch.uint8))]
-    chunk_bits = torch.empty((bsz, chunks), dtype=torch.int32, device=dev)
+    # Per call, on the current stream: the pipeline's edge and cloud
+    # threads never share look-back scratch. The kernel's launcher zeroes
+    # the ticket and the descriptors (one memset); the kernel writes every
+    # word.
+    scratch = torch.empty((scratch_len,), dtype=torch.int64, device=dev)
     words = torch.empty((bsz, w_words), dtype=torch.int32, device=dev)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.jalad_huffman_pack
-    fn.argtypes = [p, i, i, ll, i, p, p, p, p, i, p, p, ll, p]
+    fn.argtypes = [p, i, i, ll, i, p, p, p, p, i, p, ll, p, ll, i, p]
     fn.restype = ctypes.c_int
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
     status = fn(ctypes.c_void_p(xb.data_ptr()),
                 int(xb.dtype == torch.bfloat16), bsz, n, bits, *ptr, chunks,
-                ctypes.c_void_p(chunk_bits.data_ptr()),
-                ctypes.c_void_p(words.data_ptr()), w_words,
+                ctypes.c_void_p(scratch.data_ptr()), scratch_len,
+                ctypes.c_void_p(words.data_ptr()), w_words, smem,
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     build.check(status, "huffman_pack")
-    bump("huffman_pack", 3)
+    bump("huffman_pack")
     return words
 
 

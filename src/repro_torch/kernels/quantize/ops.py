@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -269,9 +270,83 @@ def dequantize_codes(codes: torch.Tensor, mn, mx, bits: int, shape,
 # ---------------------------------------------------------------------------
 
 
-def _pc_threads(length: int) -> int:
-    """K4's block: about 8 elements a thread, a multiple of 32, <= 1024."""
-    return min(1024, max(32, -(-length // (8 * 32)) * 32))
+# K4: a cluster of blocks per (sample, channel) (``csrc/perchannel.cu``).
+# The host picks the cluster size (1 to the portable maximum of 8) that
+# brings B * C * cluster to about _PC_FILL_BLOCKS (132 SMs x 4) while each
+# block keeps at least PC_MIN_SHARE elements, and splits the channel's W
+# words into ``cluster`` contiguous shares; a cluster of 1 is a plain
+# launch. A block stages
+# its share (at most PC_SHARE_MAX_FLOATS floats, under 112 KiB with the
+# layout's spare floats, so two blocks fit an SM) in shared memory; a channel longer than a cluster of 8 such
+# shares takes the streaming variant, which re-reads its share from L2 for
+# the pack in tiles of at most PC_STREAM_TILE floats.
+PC_MAX_CLUSTER = 8
+_PC_FILL_BLOCKS = 528
+PC_MIN_SHARE = 2048
+PC_SHARE_MAX_FLOATS = 27_648
+PC_STREAM_TILE = 8192
+_PC_THREADS = 256
+
+
+@dataclass(frozen=True)
+class PcEncodePlan:
+    """K4's launch: ``cluster`` blocks a channel of ``threads`` threads,
+    ``staged`` or streaming in tiles of ``tile_words`` words, and the
+    dynamic shared memory of a block."""
+    cluster: int
+    staged: bool
+    threads: int
+    tile_words: int
+    smem_bytes: int
+
+
+def pc_shares(n_words: int, cluster: int):
+    """The words ``[w0, w1)`` each rank of a channel's cluster packs; the
+    kernel splits the same way."""
+    return [(r * n_words // cluster, (r + 1) * n_words // cluster)
+            for r in range(cluster)]
+
+
+def _pc_smem_floats(elems: int) -> int:
+    """Shared floats that hold a tile of ``elems`` floats: the 32-float
+    lead (the 16-byte loads start up to three floats early) and three
+    floats past the end, one spare float every 32."""
+    a = elems + 32 + 3
+    return a + a // 32 + 1
+
+
+def pc_encode_plan(bsz: int, channels: int, length: int, bits: int,
+                   staged: Optional[bool] = None,
+                   cluster: Optional[int] = None) -> PcEncodePlan:
+    """K4's launch for (B, C) channels of ``length`` elements at ``bits``;
+    ``staged`` forces a variant and ``cluster`` a cluster size (None picks
+    each by size)."""
+    per_word = 32 // bits
+    n_words = perchannel_words(length, bits)
+    need = -(-n_words // (PC_SHARE_MAX_FLOATS // per_word))
+    if staged is None:
+        staged = need <= PC_MAX_CLUSTER
+    if cluster is None:
+        cluster = min(PC_MAX_CLUSTER, n_words,
+                      max(1, _PC_FILL_BLOCKS // (bsz * channels)),
+                      max(1, length // PC_MIN_SHARE))
+        if staged:
+            cluster = max(cluster, need)
+    if not 1 <= cluster <= min(PC_MAX_CLUSTER, n_words) or (
+            staged and cluster < need):
+        raise ValueError(f"pc_encode: no cluster of {cluster} blocks "
+                         f"{'stages' if staged else 'streams'} a channel "
+                         f"of {length} elements at {bits} bits")
+    if staged:
+        tile_words = -(-n_words // cluster)
+        share = tile_words * per_word
+        threads = min(_PC_THREADS, max(32, -(-share // 256) * 32))
+    else:
+        threads = _PC_THREADS
+        tile_words = PC_STREAM_TILE // per_word
+        share = tile_words * per_word
+    return PcEncodePlan(cluster, staged, threads, tile_words,
+                        4 * _pc_smem_floats(share))
 
 
 def pc_encode(xb: torch.Tensor, bits: int, axis: int
@@ -281,6 +356,14 @@ def pc_encode(xb: torch.Tensor, bits: int, axis: int
     _check_bits(bits)
     if xb.device.type == "cpu":
         return ref.pc_encode_ref(xb, bits, axis)
+    return _pc_encode_cuda(xb, bits, axis, None)
+
+
+def _pc_encode_cuda(xb: torch.Tensor, bits: int, axis: int,
+                    staged: Optional[bool], cluster: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's launch; ``staged`` and ``cluster`` force the variant and the
+    cluster size (``pc_encode`` lets :func:`pc_encode_plan` pick both)."""
     _check_cuda(xb, "pc_encode")
     bsz = xb.shape[0]
     outer, c, inner = channel_dims(xb.shape[1:], axis)
@@ -290,14 +373,18 @@ def pc_encode(xb: torch.Tensor, bits: int, axis: int
                          "channels must be in [1, 2^31)")
     xb = xb.to(torch.float32).contiguous()
     n_words = perchannel_words(length, bits)
+    plan = pc_encode_plan(bsz, c, length, bits, staged, cluster)
     dev = xb.device
     words = torch.empty((bsz, c, n_words), dtype=torch.int32, device=dev)
     mn = torch.empty((bsz, c), dtype=torch.float32, device=dev)
     mx = torch.empty_like(mn)
     fn = _fn("perchannel", "jalad_pc_encode",
-             [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P])
+             [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _P])
     status = fn(_ptr(xb), bsz, outer, c, inner, bits, _ptr(mn), _ptr(mx),
-                _ptr(words), n_words, _pc_threads(length), _stream())
+                _ptr(words), n_words, plan.threads, plan.cluster,
+                int(plan.staged), plan.tile_words, plan.smem_bytes,
+                _stream())
     build.check(status, "pc_encode")
     bump("pc_encode")
     return words, mn, mx

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
-the card, and the batched cloud step that the fleet server runs. Every test here carries ``requires_cuda`` and skips
-without a card. The file imports neither JAX nor the reference package
+the card, and the batched cloud step that the fleet server runs. Every
+test here carries ``requires_cuda`` and skips without a card. The file
+imports neither JAX nor the reference package
 (the plain versions are pinned to the reference by the other
 ``test_torch_*`` files), so it also runs where only PyTorch is installed:
 
@@ -223,11 +224,123 @@ def test_pack_matches_plain(cuda, bits):
         with qops.count_launches() as box:
             words = eops.huffman_pack(xb, mn, scale, clut, llut, bits,
                                       w_words)
-        assert box.counts["huffman_pack"] == 3
+        assert box.counts["huffman_pack"] == 1
         want = eops.huffman_pack_ref(xb, mn, scale, clut, llut, bits,
                                      w_words)
         assert torch.equal(words, want)
     torch.cuda.synchronize()
+
+
+def _pack_both(xb, mn, scale, clut, llut, bits, w_words):
+    with qops.count_launches() as box:
+        words = eops.huffman_pack(xb, mn, scale, clut, llut, bits, w_words)
+    assert box.counts["huffman_pack"] == 1
+    want = eops.huffman_pack_ref(xb, mn, scale, clut, llut, bits, w_words)
+    return words, want
+
+
+def _canonical_tables(xb, bits):
+    """The encode's own tables of a (B, n) stack, as the codec builds
+    them: (mn, scale, code tables, length tables, w_words, totals)."""
+    hist, mn, _, scale = eops._hist_ranges(xb, bits)
+    tables = [eops._sample_table(h, 1 << bits) for h in hist.cpu().numpy()]
+    assert all(t is not None for t in tables)
+    dev = xb.device
+    clut = torch.from_numpy(np.stack([t[0] for t in tables]).view(np.int32))
+    llut = torch.from_numpy(np.stack([t[1] for t in tables]))
+    totals = [t[3] for t in tables]
+    return (mn, scale, clut.to(dev), llut.to(dev),
+            eops._w_words(max(totals)), totals)
+
+
+def _synthetic_tables(bsz, bits, lengths, seed, dev):
+    """(B, 2^bits) tables of the given code lengths (any, not canonical:
+    K3 only places each code's low ``length`` bits), random codes."""
+    rng = np.random.default_rng(seed)
+    lens = np.broadcast_to(lengths, (bsz, 1 << bits)).astype(np.uint8)
+    codes = rng.integers(0, 1 << 32, size=lens.shape, dtype=np.uint64)
+    codes &= (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    clut = torch.from_numpy(codes.astype(np.uint32).view(np.int32))
+    return clut.to(dev), torch.from_numpy(lens.copy()).to(dev)
+
+
+# K3's edge cases: (label, B, n, bits, dtype). The stress stack has more
+# tiles (4 x 1,024) than the card holds blocks at once.
+PACK_EDGE_CASES = [("two symbols", 1, 70_001, 2, torch.float32),
+                   ("under one tile", 1, 1000, 8, torch.float32),
+                   ("one tile", 2, 4096, 8, torch.float32),
+                   ("unequal totals", 4, 50_000, 8, torch.float32),
+                   ("bf16", 3, 70_001, 8, torch.bfloat16),
+                   ("bf16 odd", 2, 4551, 4, torch.bfloat16),
+                   ("stress", 4, 4_194_304, 8, torch.float32)]
+
+
+@pytest.mark.parametrize("case", PACK_EDGE_CASES, ids=lambda c: c[0])
+def test_pack_edge_cases_match_plain(cuda, case):
+    label, bsz, n, bits, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(bsz * n + bits)
+    x = torch.relu(torch.randn((bsz, n), device=cuda, generator=gen))
+    if label == "two symbols":
+        x = (x > 0).float()
+    if label == "unequal totals":
+        x = x * torch.arange(1, bsz + 1, device=cuda)[:, None]
+        x[0, n // 2:] = 0.0
+    xb = x.to(dtype)
+    mn, scale, clut, llut, w_words, totals = _canonical_tables(xb, bits)
+    if label == "two symbols":
+        assert int(llut.max()) == 1
+    if label == "unequal totals":
+        assert len(set(totals)) == bsz
+    words, want = _pack_both(xb, mn, scale, clut, llut, bits, w_words)
+    assert torch.equal(words, want), label
+    if bsz > 1:
+        # A stack's rows equal single calls, trimmed to each stream.
+        for b in range(bsz):
+            one = eops.huffman_pack(xb[b:b + 1], mn[b:b + 1],
+                                    scale[b:b + 1], clut[b:b + 1],
+                                    llut[b:b + 1], bits,
+                                    eops._w_words(totals[b]))
+            k = -(-totals[b] // 32)
+            assert torch.equal(one[0, :k], words[b, :k]), (label, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lengths", ("all 32", "1 to 32", "all 8", "all 1"))
+def test_pack_synthetic_code_lengths_match_plain(cuda, lengths):
+    """Codes of every length up to 32 bits, tiles whose bit counts are
+    multiples of 32 (all 8 bits: every tile starts on a word), and a whole
+    tile of 32-bit codes (4,096 words)."""
+    bits = 8
+    rng = np.random.default_rng(5)
+    lens = {"all 32": np.full(256, 32), "1 to 32": rng.integers(1, 33, 256),
+            "all 8": np.full(256, 8), "all 1": np.ones(256)}[lengths]
+    for bsz, n in [(1, 4096 * 3), (2, 70_001), (3, 4551)]:
+        xb = torch.relu(torch.randn((bsz, n), device=cuda))
+        _, mn, _, scale = eops._hist_ranges(xb, bits)
+        clut, llut = _synthetic_tables(bsz, bits, lens, bsz, cuda)
+        w_words = eops._w_words(32 * n)
+        words, want = _pack_both(xb, mn, scale, clut, llut, bits, w_words)
+        assert torch.equal(words, want), (lengths, bsz, n)
+    torch.cuda.synchronize()
+
+
+def test_pack_and_pc_encode_run_one_device_kernel_a_call(cuda):
+    """K3: one kernel and the one memset it names (the look-back
+    scratch); K4: one kernel, whichever variant."""
+    xb = torch.relu(torch.randn((2, 70_001), device=cuda))
+    mn, scale, clut, llut, w_words, _ = _canonical_tables(xb, 8)
+    ops = _device_kernels(lambda: eops.huffman_pack(xb, mn, scale, clut,
+                                                    llut, 8, w_words))
+    kernels = {k: v for k, v in ops.items() if not k.startswith("Memset")}
+    assert list(kernels.values()) == [1], ops
+    assert "huffman_pack" in next(iter(kernels))
+    assert sum(ops.values()) - 1 == 1, ops
+    x = torch.relu(torch.randn((1, 2, 8 * qops.PC_SHARE_MAX_FLOATS),
+                               device=cuda))
+    for staged in (True, False):
+        ops = _device_kernels(lambda: qops._pc_encode_cuda(x, 8, 0, staged))
+        assert list(ops.values()) == [1], (staged, ops)
+        assert "pc_encode" in next(iter(ops))
 
 
 def test_huffman_payloads_match_cpu_and_host_encoder(cuda):
@@ -268,6 +381,39 @@ def test_perchannel_encode_decode_match_plain(cuda, bits):
             assert torch.equal(got.view(view), want.view(view))
         one, mn1, _ = qops.perchannel_encode(xb[1], bits, axis)
         assert torch.equal(one, words[1]) and torch.equal(mn1, mn[1])
+    torch.cuda.synchronize()
+
+
+# Channel lengths that are not multiples of cluster x (32 // bits), with
+# 16-byte loads (inner % 4 == 0) and without.
+PC_CLUSTER_SHAPES = [((3, 4, 1001), 1), ((2, 2, 4100), 1), ((2, 5, 17), 1)]
+
+
+@pytest.mark.parametrize("bits", (2, 3, 5, 16))
+def test_pc_encode_clusters_and_variants_match_plain(cuda, bits):
+    """K4 forced to every cluster size from 1 to 8, in both variants."""
+    for shape, axis in PC_CLUSTER_SHAPES:
+        xb = torch.relu(torch.randn((2,) + shape, device=cuda))
+        xb[1, :, 0] = 0.25                      # an empty range
+        pw, pmn, pmx = qref.pc_encode_ref(xb, bits, axis)
+        outer, c, inner = qref.channel_dims(shape, axis)
+        n_words = qops.perchannel_words(outer * inner, bits)
+        for cluster in range(1, min(qops.PC_MAX_CLUSTER, n_words) + 1):
+            for staged in (True, False):
+                words, mn, mx = qops._pc_encode_cuda(xb, bits, axis, staged,
+                                                     cluster)
+                assert torch.equal(words, pw), (shape, cluster, staged)
+                assert torch.equal(mn, pmn) and torch.equal(mx, pmx)
+    # Runs of several streaming tiles: one the host stages, one too long to
+    # stage.
+    for length in (3 * qops.PC_STREAM_TILE + 7,
+                   8 * qops.PC_SHARE_MAX_FLOATS + 9):
+        xb = torch.relu(torch.randn((1, 2, length), device=cuda))
+        pw, pmn, pmx = qref.pc_encode_ref(xb, bits, 0)
+        for got in (qops.pc_encode(xb, bits, 0),
+                    qops._pc_encode_cuda(xb, bits, 0, False)):
+            assert torch.equal(got[0], pw) and torch.equal(got[1], pmn)
+            assert torch.equal(got[2], pmx)
     torch.cuda.synchronize()
 
 

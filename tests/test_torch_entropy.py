@@ -143,3 +143,25 @@ def test_pack_plain_version_spills_across_words():
     bits = stream + "0" * (128 - len(stream))
     want = [int(bits[i:i + 32], 2) for i in range(0, 128, 32)]
     assert words.numpy().view(np.uint32).tolist() == [want]
+
+
+@pytest.mark.parametrize("bits", (1, 2, 8, 12, 16))
+def test_pack_plan_sizes_tiles_scratch_and_shared_memory(bits):
+    """K3's host arithmetic: tiles cover each sample, the scratch holds the
+    ticket and a descriptor and a tail a tile, the word buffer holds a tile of
+    32-bit codes that starts inside a word, the tables are staged up to 12
+    bits, and a block stays within 48 KiB of shared memory."""
+    chunk = teops.HUFFMAN_CHUNK
+    words = teops._TILE_WORDS
+    assert 32 * words >= chunk * teops.PACK_MAX_CODE_BITS + 31
+    assert words % 4 == 0          # the tables that follow are 16-byte aligned
+    for bsz, n in [(1, 1), (1, chunk - 1), (1, chunk), (1, chunk + 1),
+                   (4, 4551), (1, 4 * 64 * 112 * 112), (4, 4_194_304)]:
+        chunks, scratch_len, smem = teops.pack_plan(bsz, n, bits)
+        assert (chunks - 1) * chunk < n <= chunks * chunk
+        assert scratch_len == 1 + 2 * bsz * chunks
+        staged = 5 << bits if bits <= 12 else 0
+        assert smem == 4 * words + staged
+        assert smem <= 48 * 1024
+    with pytest.raises(ValueError):
+        teops.pack_plan(1 << 20, 1 << 31, bits)

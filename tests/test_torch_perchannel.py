@@ -201,3 +201,69 @@ def test_launch_counters_do_not_move_on_the_cpu():
         words, mn, mx = qops.perchannel_encode(torch.randn(2, 3, 4), 4, 0)
         qops.perchannel_decode(words, mn, mx, 4, (2, 3, 4), 0)
     assert box.counts["pc_encode"] == box.counts["pc_decode"] == 0
+
+
+# (B, C, channel length) of K4's launches: the stem, res5, gap and fc
+# boundaries of ResNet-50 at batch 4 (one sample, and a micro-batch of 4),
+# the odd shape, runs on either side of the staged variant's limit, and a
+# channel too long for it.
+PLAN_CASES = [(1, 64, 50_176), (4, 64, 50_176), (1, 2048, 196), (1, 2048, 4),
+              (1, 1000, 4), (1, 3, 1517), (2, 3, 7), (1, 5, 1), (8, 3, 1),
+              (1, 2, 8 * qops.PC_SHARE_MAX_FLOATS),
+              (1, 2, 8 * qops.PC_SHARE_MAX_FLOATS + 1), (1, 2, 1 << 22)]
+_SM_SHARED = 233_472          # bytes of shared memory an H100 SM holds
+_BLOCK_SHARED = 232_448       # the most one block may take
+
+
+@pytest.mark.parametrize("bits", (1, 2, 3, 5, 8, 16))
+def test_pc_encode_plan_splits_each_channel_into_word_shares(bits):
+    """K4's host arithmetic: every word of a channel lies in exactly one
+    block's share, each share starts on a word (``32 // bits`` elements),
+    and a block's tile fits its shared memory, two blocks to an SM when
+    staged."""
+    per_word = 32 // bits
+    for bsz, c, length in PLAN_CASES:
+        n_words = qops.perchannel_words(length, bits)
+        plan = qops.pc_encode_plan(bsz, c, length, bits)
+        assert 1 <= plan.cluster <= min(qops.PC_MAX_CLUSTER, n_words)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+        shares = qops.pc_shares(n_words, plan.cluster)
+        assert shares[0][0] == 0 and shares[-1][1] == n_words
+        for (_, w1), (w0, _) in zip(shares, shares[1:]):
+            assert w1 == w0
+        assert all(w1 > w0 for w0, w1 in shares)
+        assert all(w0 * per_word < length for w0, _ in shares)
+        longest = max(w1 - w0 for w0, w1 in shares)
+        assert plan.staged == (-(-n_words // (qops.PC_SHARE_MAX_FLOATS
+                                              // per_word))
+                               <= qops.PC_MAX_CLUSTER)
+        tile = longest if plan.staged else plan.tile_words
+        assert plan.tile_words >= (longest if plan.staged else 1)
+        # The tile, its 32-float lead and 3 floats past its end, one spare
+        # float every 32.
+        assert plan.smem_bytes >= 4 * ((tile * per_word + 35) * 33 // 32)
+        assert plan.smem_bytes <= _BLOCK_SHARED
+        if plan.staged:
+            assert tile * per_word <= qops.PC_SHARE_MAX_FLOATS
+            assert 2 * (plan.smem_bytes + 1024) <= _SM_SHARED
+        else:
+            assert plan.tile_words * per_word <= qops.PC_STREAM_TILE
+    # Clusters fill the card where B * C is small, one block where C is
+    # large.
+    assert qops.pc_encode_plan(1, 64, 50_176, bits).cluster == 8
+    for bsz, c, length in [(1, 2048, 196), (1, 2048, 4), (1, 1000, 4)]:
+        assert qops.pc_encode_plan(bsz, c, length, bits).cluster == 1
+
+
+def test_pc_encode_plan_forced_variants_and_clusters():
+    limit = 8 * qops.PC_SHARE_MAX_FLOATS
+    assert qops.pc_encode_plan(1, 2, limit, 8, staged=False).cluster == 8
+    with pytest.raises(ValueError):
+        qops.pc_encode_plan(1, 2, limit + 1, 8, staged=True)
+    with pytest.raises(ValueError):
+        qops.pc_encode_plan(1, 2, limit, 8, staged=True, cluster=7)
+    with pytest.raises(ValueError):
+        qops.pc_encode_plan(1, 2, 9, 8, cluster=4)      # 3 words
+    for cluster in range(1, 9):
+        plan = qops.pc_encode_plan(1, 2, 1000, 3, cluster=cluster)
+        assert plan.cluster == cluster and plan.staged
