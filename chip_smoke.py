@@ -17,12 +17,19 @@ NVIDIA card.
    16-byte boundary). Codes, words and ranges must be byte-identical,
    dequantized floats bit-identical (float32 and bfloat16). Times are
    CUDA-event medians with the L2 cache flushed before every call; the
-   bound is the bytes the function must move over 3.35 TB/s. At the stem
-   boundary, 8 bits, ``torch.profiler`` gives each kernel's warm time and
-   the device operations a call runs, printed; K2, K3, K4 and K5 must run
-   one kernel, K3 beside its one memset (the look-back scratch). K3
-   and K4 are also held in bfloat16; K3 on a (4, 4,194,304) stack of more
-   tiles than the card holds blocks (rows equal single calls) and on
+   bound is the bytes the function must move over 3.35 TB/s. Ranges are
+   compared by bits (``-0.0`` is not ``+0.0``). At the stem boundary, 8
+   bits, ``torch.profiler`` gives each kernel's warm time and the device
+   operations a call runs, printed; K1, K2, K3, K4 and K5 must run one
+   kernel, K3 beside its one memset (the look-back scratch), the others
+   with none. K1 is also held at the served shapes (the ``stem_pool``
+   boundary of one request and of the pipeline's micro-batch of four,
+   ``fc``) and on a (4, 4,194,304) stack past what the card stages, in
+   float32 and bfloat16, timed at 2 and 8 bits; both of its variants
+   (solo, grid) are timed at each shape of ``K1_SWEEP``, and held on
+   samples whose minimum or maximum is a zero of both signs.
+   K1, K3 and K4 are also held in bfloat16; K3 on a (4, 4,194,304) stack
+   of more tiles than the card holds blocks (rows equal single calls) and on
    synthetic tables (every code 8 bits, so tiles start on words; codes of
    1 to 32 bits). K5's two variants are timed on either side of the run
    length at which ``pc_decode`` picks the tiled one, K4's on either side
@@ -101,6 +108,19 @@ PC_ENC_SWEEP = (1 / 64, 1 / 8, 1 / 2, 1)
 # and the memsets a call runs (the look-back scratch).
 K3_STRESS = (4, 4_194_304)
 K3_MEMSETS = 1
+# K1 at the served shapes, each a (B, n) stack: the stem_pool boundary of
+# one request of batch 4 and the pipeline's micro-batch of four such
+# requests, the fc boundary, and a stack past what the card stages (64 MiB
+# of float32); timed at K1_BITS. K1_SWEEP: shapes at which both variants
+# are timed: either side of the size at which fused_encode_plan leaves one
+# block a sample (FE_SOLO_MAX), and the res5, stem_pool and pipeline
+# shapes.
+K1_SHAPES = {"stem_pool": (1, 802_816), "pipe4": (4, 802_816),
+             "fc": (1, 4_000), "over": (4, 4_194_304)}
+K1_BITS = (2, 8)
+K1_SWEEP = {"n8192": (1, 8_192), "n16384": (1, 16_384),
+            "n32768": (1, 32_768), "res5": (1, 401_408),
+            "stem_pool": (1, 802_816), "pipe4": (4, 802_816)}
 CODECS = ("huffman", "bitpack", "perchannel")
 TRACE = (300e3, 3e6, 3e7, 1e9)     # bytes/s, one request each
 # Pipeline: a bandwidth step, served in micro-batches of 4 requests.
@@ -140,6 +160,15 @@ def check(ok, what: str) -> None:
     """Fail the run (not an ``assert``: the checks must hold under -O)."""
     if not ok:
         raise SmokeFailure(what)
+
+
+def same_bits(a, b) -> bool:
+    """Equal float32 tensors bit for bit (``torch.equal`` takes -0.0 for
+    +0.0, and a range header must not)."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
 def card_line() -> str:
@@ -278,8 +307,13 @@ def check_kernels(torch, results):
             worst["fused_encode"] = max(worst["fused_encode"], float(err))
             check(torch.equal(codes, pc),
                   f"K1 codes {label} {bits}")
-            check(torch.equal(mn, pmn) and torch.equal(mx, pmx),
-                  "K1 range")
+            check(same_bits(mn, pmn) and same_bits(mx, pmx),
+                  f"K1 range {label} {bits}")
+            xh = xb.to(torch.bfloat16)
+            hc, hmn, hmx = qops.fused_encode(xh, bits)
+            hp = qref.fused_encode_ref(xh, bits)
+            check(torch.equal(hc, hp[0]) and same_bits(hmn, hp[1])
+                  and same_bits(hmx, hp[2]), f"K1 bf16 {label} {bits}")
             wire = codes.numel() * codes.element_size()
             rows.append(dict(
                 kernel="fused_encode", shape=label, bits=bits,
@@ -360,7 +394,8 @@ def check_kernels(torch, results):
                         codes, mn, mx, bits, n, packed),
                     "huffman_pack": lambda: eops.huffman_pack(
                         xb, hmn, scale, clut, llut, bits, w_words)},
-                    one_kernel=("fused_decode", "huffman_pack"),
+                    one_kernel=("fused_encode", "fused_decode",
+                                "huffman_pack"),
                     memsets={"huffman_pack": K3_MEMSETS})
     # A B = 3 stack of the odd shape: rows 2 and 3 start off every 16-byte
     # boundary, in the codes and in the output.
@@ -369,10 +404,95 @@ def check_kernels(torch, results):
     for bits in BITS:
         codes, mn, mx = qops.fused_encode(xs, bits)
         check_decode("odd", bits, codes, mn, mx, n)
+    rows += check_fused_encode(torch, results, gen, flush, worst)
     rows += check_pack_stress(torch, gen, flush, worst)
     results["kernel_rows"] = rows
     results["max_abs_err"] = worst
     return rows, worst
+
+
+def check_fused_encode(torch, results, gen, flush, worst):
+    """K1 at the served shapes (K1_SHAPES) in float32 and bfloat16 at every
+    width of BITS, timed at K1_BITS; both variants at each shape of
+    K1_SWEEP, timed, each against the plain version; and samples whose
+    minimum or maximum is a zero of both signs, in every variant. Returns
+    the timed rows."""
+    import numpy as np
+
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+
+    dev = torch.device("cuda")
+    rows = []
+
+    def held(xb, bits, variant=None, what=""):
+        got = qops._fused_encode_cuda(xb, bits, variant)
+        want = qref.fused_encode_ref(xb, bits)
+        err = (got[0].to(torch.int32) - want[0].to(torch.int32)).abs().max()
+        worst["fused_encode"] = max(worst["fused_encode"], float(err))
+        check(torch.equal(got[0], want[0]) and same_bits(got[1], want[1])
+              and same_bits(got[2], want[2]),
+              f"K1 {what} {tuple(xb.shape)} {xb.dtype} {bits} {variant}")
+        return got
+
+    for label, shape in K1_SHAPES.items():
+        x = torch.relu(torch.randn(shape, device=dev, generator=gen))
+        for xb in (x, x.to(torch.bfloat16)):
+            for bits in BITS:
+                held(xb, bits, what=label)
+        plan = qops.fused_encode_plan(
+            *shape, False, qops.fused_encode_resident(dev, False, 8))
+        for bits in K1_BITS:
+            wire = shape[0] * qref.wire_len(shape[1], bits) * (
+                2 if bits > 8 else 1)
+            rows.append(dict(
+                kernel="fused_encode", shape=label, bits=bits,
+                variant=plan.variant, blocks=plan.blocks,
+                ms=device_ms(torch, lambda: qops.fused_encode(x, bits),
+                             flush),
+                plain_ms=device_ms(torch, lambda: qref.fused_encode_ref(
+                    x, bits), flush, reps=5),
+                bound_ms=bound_ms(4 * x.numel() + wire + 8 * shape[0]),
+                library_ms=None))
+            r = rows[-1]
+            print(f"  K1 {label:9s} {tuple(shape)} {bits:2d} bits "
+                  f"({plan.variant}, {plan.blocks} blocks a sample): "
+                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f})")
+    sweep = []
+    for label, shape in K1_SWEEP.items():
+        x = torch.relu(torch.randn(shape, device=dev, generator=gen))
+        resident = qops.fused_encode_resident(dev, False, 8)
+        picked = qops.fused_encode_plan(*shape, False, resident).variant
+        for variant in qops.FE_VARIANTS:
+            plan = qops.fused_encode_plan(*shape, False, resident, variant)
+            held(x, 8, variant, "sweep")
+            entry = dict(shape=label, dims=list(shape), variant=variant,
+                         picked=variant == picked, blocks=plan.blocks,
+                         ms=device_ms(torch, lambda: qops._fused_encode_cuda(
+                             x, 8, variant), flush))
+            entry["warm_ms"], entry["device_ops"] = profiled_ms(
+                torch, lambda: qops._fused_encode_cuda(x, 8, variant))
+            sweep.append(entry)
+            print(f"  K1 {variant:4s} at {label} {tuple(shape)} 8 bits: "
+                  f"{entry['ms']:.4f} ms cold, {entry['warm_ms']} ms warm, "
+                  f"{plan.blocks} blocks a sample"
+                  + (" (picked)" if entry["picked"] else ""))
+    results["fused_encode_variants"] = sweep
+    # Signed zeros at the minimum (even rows) and the maximum (odd rows),
+    # in both orders: the ranges of every variant equal the plain
+    # version's bit for bit.
+    for zeros in ([0.0, -0.0], [-0.0, 0.0]):
+        for bsz, n in ((2, 70_001), (1, 802_816)):
+            rows_np = [np.resize(np.array(zeros + [1.0, 2.0] if b % 2 == 0
+                                          else [-1.0, -2.0] + zeros,
+                                          np.float32), n)
+                       for b in range(bsz)]
+            xz = torch.from_numpy(np.stack(rows_np)).to(dev)
+            for variant in qops.FE_VARIANTS:
+                for bits in (4, 8):
+                    held(xz, bits, variant, f"signed zeros {zeros}")
+    return rows
 
 
 def check_pack_stress(torch, gen, flush, worst):
@@ -472,7 +592,7 @@ def check_perchannel_kernels(torch, results):
             diff = (words != pw).sum()
             worst["pc_encode"] = max(worst["pc_encode"], float(diff))
             check(torch.equal(words, pw), f"K4 words {label} {bits}")
-            check(torch.equal(mn, pmn) and torch.equal(mx, pmx),
+            check(same_bits(mn, pmn) and same_bits(mx, pmx),
                   f"K4 ranges {label} {bits}")
             xh = xb.to(torch.bfloat16)
             check(all(torch.equal(a, b) for a, b in zip(
@@ -854,7 +974,7 @@ def check_threelaunch_kernels(torch, results, base, params):
             worst["minmax_blocks"] = max(
                 worst["minmax_blocks"], float((pmin - rmin).abs().max()),
                 float((pmax - rmax).abs().max()))
-            check(torch.equal(pmin, rmin) and torch.equal(pmax, rmax),
+            check(same_bits(pmin, rmin) and same_bits(pmax, rmax),
                   f"K6a partials {label} {x.dtype}")
             mn, mx = torch.amin(pmin), torch.amax(pmax)
             if timed:
@@ -893,7 +1013,9 @@ def check_threelaunch_kernels(torch, results, base, params):
                 check(sum(box.counts.values()) == (3 if bits <= 4 else 2),
                       f"K6 chain launches {box.counts}")
                 fused = qops.quantize_pack(x, bits)
-                check(all(torch.equal(a, b) for a, b in zip(chain, fused)),
+                check(torch.equal(chain[0], fused[0])
+                      and same_bits(chain[1], fused[1])
+                      and same_bits(chain[2], fused[2]),
                       f"K6 chain vs K1 {label} {x.dtype} {bits}")
                 if not timed:
                     continue

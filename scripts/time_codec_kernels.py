@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's encode kernels K3 (``huffman_pack``) and K4
-(``pc_encode``) of one checkout on one CUDA card.
+"""Time the port's encode kernels K1 (``fused_encode``), K3
+(``huffman_pack``) and K4 (``pc_encode``) of one checkout on one CUDA
+card, and the Huffman encode's phase 1 (``_hist_ranges``: the ranges and
+the histogram, PyTorch operations on the card) that feeds K3.
 
   python3 scripts/time_codec_kernels.py [--root DIR] [--label NAME]
       [--json PATH]
@@ -9,10 +11,11 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout) and
 builds its kernels into ``DIR/build``, so that two checkouts can be timed
 in turns on one card: for example a parent commit unpacked with ``git
 archive`` into a git-ignored directory, run parent, change, change,
-parent. Shapes, widths and clocks are ``chip_smoke.py``'s: K3 on
+parent. Shapes, widths and clocks are ``chip_smoke.py``'s: K1 and K3 on
 the stem, res5 and odd boundaries taken as one tensor at 2, 4, 8 and 16
-bits; K4 on the stem, res5, gap and odd boundaries (one sample) at 2, 3,
-4, 5, 8 and 16 bits; "ms" is the median CUDA-event time of one call with
+bits, K1 also on the served shapes (``K1_SHAPES``) at 2 and 8 bits; K4
+on the stem, res5, gap and odd boundaries (one sample) at 2, 3, 4, 5, 8
+and 16 bits; "ms" is the median CUDA-event time of one call with
 the L2 cache flushed before it, "warm_ms" the profiler's device time a
 call over 20 back-to-back calls, with the device operations a call runs.
 Prints the card and one JSON object; ``--json`` also writes it to PATH.
@@ -65,15 +68,40 @@ def main(argv=None) -> int:
         rows.append(dict(kernel=kernel, shape=label, bits=bits, ms=ms,
                          warm_ms=warm, device_ops=ops,
                          bound_ms=cs.bound_ms(nbytes)))
-        print(f"  {kernel:12s} {label:5s} {bits:2d} bits  {ms:.4f} ms, warm "
+        print(f"  {kernel:12s} {label:9s} {bits:2d} bits  {ms:.4f} ms, warm "
               f"{warm} ms, bound {rows[-1]['bound_ms']:.4f}; {ops}")
 
+    def k1(label, xb, bits):
+        got = qops.fused_encode(xb, bits)
+        want = qref.fused_encode_ref(xb, bits)
+        if not (torch.equal(got[0], want[0])
+                and cs.same_bits(got[1], want[1])
+                and cs.same_bits(got[2], want[2])):
+            raise SystemExit(f"K1 differs from its plain version at "
+                             f"{label} {bits}")
+        timed("fused_encode", label, bits, lambda: qops.fused_encode(xb,
+                                                                     bits),
+              4 * xb.numel() + got[0].numel() * got[0].element_size()
+              + 8 * xb.shape[0])
+
+    for label, shape in cs.SHAPES.items():
+        xb = torch.relu(torch.randn(shape, device=dev, generator=gen)
+                        ).reshape(1, -1)
+        for bits in cs.BITS:
+            k1(label, xb, bits)
+    for label, shape in cs.K1_SHAPES.items():
+        xb = torch.relu(torch.randn(shape, device=dev, generator=gen))
+        for bits in cs.K1_BITS:
+            k1(label, xb, bits)
     for label, shape in cs.SHAPES.items():
         xb = torch.relu(torch.randn(shape, device=dev, generator=gen)
                         ).reshape(1, -1)
         n = xb.shape[1]
         for bits in cs.BITS:
             hist, mn, _, scale = eops._hist_ranges(xb, bits)
+            timed("hist_ranges", label, bits,
+                  lambda: eops._hist_ranges(xb, bits),
+                  4 * n + 8 * (1 << bits) + 12)
             code_of, len_of, _, total = eops._sample_table(
                 hist.cpu().numpy()[0], 1 << bits)
             clut = torch.from_numpy(code_of.view(np.int32)[None]).to(dev)

@@ -17,7 +17,7 @@ c-bit packing, the oracle of the per-channel kernels' word layout.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,52 @@ def dequant_step(mn: torch.Tensor, mx: torch.Tensor, bits: int
     return (mx - mn) * torch.full_like(mn, dequant_recip(bits))
 
 
+# -0.0 seen as an int32.
+_NEG_ZERO_BITS = -(1 << 31)
+
+
+def _zero_signed(r: torch.Tensor, x: torch.Tensor, dim, neg: bool
+                 ) -> torch.Tensor:
+    """``r`` (a minimum (``neg``) or maximum of float32 ``x`` over ``dim``)
+    with a zero made ``-0.0`` (``+0.0``) where ``x`` holds that zero. A
+    zero ``r`` is one of ``x``'s, so where ``x`` holds no such zero it is
+    already the other one."""
+    kw = {} if dim is None else {"dim": dim}
+    held = (x.view(torch.int32) == (_NEG_ZERO_BITS if neg else 0)).any(**kw)
+    return torch.where(held & (r == 0), -0.0 if neg else 0.0, r)
+
+
+def ordered_amin(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``x.amin(dim)`` of float32 ``x`` (every dim when ``dim`` is None)
+    in the reference's order, in which ``-0.0 < +0.0``: a zero minimum is
+    ``-0.0`` wherever the values hold a ``-0.0``. ``torch.amin`` returns
+    whichever zero it meets first, and that order differs between devices;
+    ``jnp.min`` returns ``-0.0`` in either order. NaN is left as ``amin``
+    gives it."""
+    return _zero_signed(x.amin() if dim is None else x.amin(dim), x, dim,
+                        True)
+
+
+def ordered_amax(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``x.amax(dim)`` in the order of :func:`ordered_amin`: a zero maximum
+    is ``+0.0`` wherever the values hold a ``+0.0``."""
+    return _zero_signed(x.amax() if dim is None else x.amax(dim), x, dim,
+                        False)
+
+
+def ordered_aminmax(x: torch.Tensor, dim=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ordered_amin(x, dim), ordered_amax(x, dim))`` from one
+    ``torch.aminmax`` (``dim`` None or one dim; a tuple of dims takes
+    ``amin`` and ``amax``)."""
+    if isinstance(dim, tuple):
+        mn, mx = x.amin(dim), x.amax(dim)
+    else:
+        mn, mx = torch.aminmax(x) if dim is None else torch.aminmax(x,
+                                                                   dim=dim)
+    return _zero_signed(mn, x, dim, True), _zero_signed(mx, x, dim, False)
+
+
 def _channel_view(v: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
     """A (C,) range vector shaped to broadcast along ``axis``."""
     shape = [1] * ndim
@@ -94,14 +140,12 @@ def quantize(x: torch.Tensor, bits: int, axis: Optional[int] = None
     per-channel statistics along ``axis``."""
     xf = x.to(torch.float32)
     if axis is None:
-        x_min = mn = xf.amin()
-        x_max = mx = xf.amax()
+        x_min, x_max = mn, mx = ordered_aminmax(xf)
     else:
         reduce = tuple(i for i in range(x.ndim) if i != axis)
         # ``amin(dim=())`` would reduce every dim; a 1-D tensor's channels
         # are its elements.
-        x_min = xf.amin(dim=reduce) if reduce else xf
-        x_max = xf.amax(dim=reduce) if reduce else xf
+        x_min, x_max = ordered_aminmax(xf, reduce) if reduce else (xf, xf)
         mn = _channel_view(x_min, x.ndim, axis)
         mx = _channel_view(x_max, x.ndim, axis)
     scale = affine_scale(mn, mx, bits)

@@ -63,11 +63,15 @@
 // Numerics: IEEE subtract, multiply and divide through the _rn intrinsics
 // (never contracted, never fast-math) and rintf (round half to even, as
 // jnp.round), so words are bit-identical to the reference; the decode uses
-// one fmaf, as the reference's jitted decode rounds once.
+// one fmaf, as the reference's jitted decode rounds once. K4's ranges fold
+// in the reference's order, -0.0 < +0.0 (ranges.cuh), so a channel holding
+// both zeros gets the reference's header bits whatever the fold order.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "ranges.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -92,39 +96,6 @@ __device__ __forceinline__ unsigned fdiv(unsigned n, const FastDiv& f) {
   return (__umulhi(n, f.m) + n) >> f.s;
 }
 
-// Min and max over the block; every thread returns the block's result.
-__device__ __forceinline__ void block_minmax(float& lo, float& hi) {
-  __shared__ float s_lo[32];
-  __shared__ float s_hi[32];
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  if (lane == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    lo = lane < n_warps ? s_lo[lane] : INFINITY;
-    hi = lane < n_warps ? s_hi[lane] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) {
-      s_lo[0] = lo;
-      s_hi[0] = hi;
-    }
-  }
-  __syncthreads();
-  lo = s_lo[0];
-  hi = s_hi[0];
-}
-
 // K4's shared layout: element a of a tile at a + a / 32, one spare float
 // every 32, so the pack's stride-k reads fall at most two to a bank.
 __device__ __forceinline__ unsigned pad_idx(unsigned a) { return a + (a >> 5); }
@@ -143,7 +114,7 @@ __device__ __forceinline__ void load_share(const float* __restrict__ xs,
                                            unsigned e0, unsigned e1,
                                            unsigned inner, FastDiv by_inner,
                                            long long row, bool vec,
-                                           float* s, float& lo, float& hi) {
+                                           float* s, KeyRange& range) {
   if (vec) {
     const unsigned q1 = (e1 + 3) >> 2;
 #pragma unroll 4
@@ -152,8 +123,10 @@ __device__ __forceinline__ void load_share(const float* __restrict__ xs,
       const unsigned o = fdiv(l, by_inner);
       const float4 v = __ldg(reinterpret_cast<const float4*>(
           xs + o * row + (l - o * inner)));
-      lo = fminf(lo, fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
-      hi = fmaxf(hi, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      range.add(v.x);
+      range.add(v.y);
+      range.add(v.z);
+      range.add(v.w);
       if (STORE) {
         const unsigned a = l + kLead - e0;
         s[pad_idx(a)] = v.x;
@@ -167,8 +140,7 @@ __device__ __forceinline__ void load_share(const float* __restrict__ xs,
     for (unsigned l = e0 + threadIdx.x; l < e1; l += blockDim.x) {
       const unsigned o = fdiv(l, by_inner);
       const float v = xs[o * row + (l - o * inner)];
-      lo = fminf(lo, v);
-      hi = fmaxf(hi, v);
+      range.add(v);
       if (STORE) s[pad_idx(l + kLead - e0)] = v;
     }
   }
@@ -214,8 +186,8 @@ pc_encode_kernel(const float* __restrict__ x, int outer, int channels,
                  int n_words) {
   constexpr unsigned kPerWord = 32 / BITS;
   extern __shared__ float s_x[];
-  __shared__ float s_range[2];
-  __shared__ float s_all[2];
+  __shared__ int s_range[2];
+  __shared__ int s_all[2];
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cs > 1 ? cluster.block_rank() : 0u;
   const int c = blockIdx.x / cs;
@@ -231,38 +203,34 @@ pc_encode_kernel(const float* __restrict__ x, int outer, int channels,
   const unsigned e0 = w0 * kPerWord;
   const unsigned e1 = min(w1 * kPerWord, length);
 
-  float lo = INFINITY;
-  float hi = -INFINITY;
+  KeyRange range;
   if (e0 < e1)
-    load_share<STAGED>(xs, e0, e1, inner, by_inner, row, vec, s_x, lo, hi);
-  block_minmax(lo, hi);
+    load_share<STAGED>(xs, e0, e1, inner, by_inner, row, vec, s_x, range);
+  block_range(range);
   if (cs > 1) {
     if (threadIdx.x == 0) {
-      s_range[0] = lo;
-      s_range[1] = hi;
+      s_range[0] = range.lo;
+      s_range[1] = range.hi;
     }
     cluster.sync();
     if (threadIdx.x < 32) {
-      lo = INFINITY;
-      hi = -INFINITY;
+      KeyRange all;
       if (threadIdx.x < cs) {
-        const float* r = cluster.map_shared_rank(s_range, threadIdx.x);
-        lo = r[0];
-        hi = r[1];
+        const int* r = cluster.map_shared_rank(s_range, threadIdx.x);
+        all.add(r[0], r[1]);
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-        hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-      }
+      warp_range(all);
       if (threadIdx.x == 0) {
-        s_all[0] = lo;
-        s_all[1] = hi;
+        s_all[0] = all.lo;
+        s_all[1] = all.hi;
       }
     }
     __syncthreads();
-    lo = s_all[0];
-    hi = s_all[1];
+    range.lo = s_all[0];
+    range.hi = s_all[1];
   }
+  const float lo = range.min_value();
+  const float hi = range.max_value();
   if (rank == 0 && threadIdx.x == 0) {
     const long long bc = static_cast<long long>(b) * channels + c;
     mn_out[bc] = lo;
@@ -277,9 +245,9 @@ pc_encode_kernel(const float* __restrict__ x, int outer, int channels,
   } else {
     for (unsigned t0 = w0; t0 < w1; t0 += tile_words) {
       const unsigned t1 = min(t0 + tile_words, w1);
-      float tlo = 0.0f, thi = 0.0f;  // not used
+      KeyRange unused;
       load_share<true>(xs, t0 * kPerWord, min(t1 * kPerWord, length), inner,
-                       by_inner, row, vec, s_x, tlo, thi);
+                       by_inner, row, vec, s_x, unused);
       __syncthreads();
       pack_share<BITS>(s_x, t0, t1, length, lo, scale, out);
       __syncthreads();

@@ -2,7 +2,8 @@
 //
 // K1  fused encode  — replaces repro/kernels/quantize/quantize.py
 //     `fused_encode_blocks` (Pallas `_fused_encode_whole_kernel` /
-//     `_fused_encode_kernel`). Per-sample min/max, then
+//     `_fused_encode_kernel`). Per-sample min/max (in the reference's order,
+//     -0.0 < +0.0: ranges.cuh), then
 //     q = clip(rint((x - mn) * scale), 0, 2^c - 1), scale = (2^c-1)/(mx-mn)
 //     (0 when mx == mn), then nibble pairs lo | hi << 4 (c <= 4), u8 codes
 //     (c <= 8) or u16 codes (c > 8).
@@ -14,15 +15,41 @@
 //
 // Bound on this card: bytes. Both kernels do a handful of flops per byte
 // (far below the H100's ~20 flop/byte float32 ridge), so the least time is
-// (bytes in + bytes out) / 3.35 TB/s. K1 must know each sample's global range
-// before it writes any code, and blocks on a GPU run in no order, so it is
-// two launches: a grid-wide partial min/max reduction, then the quantize +
-// pack pass, whose blocks each fold the (few hundred) partials of their
-// sample before streaming the input a second time. The input is read twice
-// (the TPU kernel also streams it twice); the codes are written once and
-// never round-trip device memory between the affine map and the pack.
-// Loads and stores are coalesced (neighbouring threads, neighbouring
-// elements). K2 is one launch and one pass: every code byte read once,
+// (bytes in + bytes out) / 3.35 TB/s.
+//
+// K1 is one launch that reads its input from device memory once wherever
+// the stack fits on chip. A sample's range must be known before any of its
+// codes, and blocks run in no order, so each block stages a contiguous
+// share of one sample in shared memory (16-byte loads) while it reduces the
+// share's (min, max); the blocks of a sample then exchange their pairs, and
+// each quantizes its share from shared memory and stores the codes 4 or 8
+// bytes a thread (a warp's store covers 128 or 256 contiguous bytes). The
+// exchange is the variant (`fused_encode_plan` in kernels/quantize/ops.py
+// picks it by size):
+//   solo     one block a sample: no exchange, a plain launch (small samples,
+//            e.g. fc and the odd tensor, or more samples than the card
+//            holds blocks);
+//   grid     a cooperative launch of at most as many blocks as the card
+//            holds at once, split evenly over the samples: each block writes
+//            its pair to scratch, cg::this_grid().sync(), then warp 0 folds
+//            only its own sample's pairs (at most a few hundred).
+// A block is 512 threads with at most 200 KB of shared memory, one to an
+// SM: 132 of them stage ~26 MB, so the stem boundary and the pipeline's
+// (4, 802,816) stack are read once. Where a share is longer than its block
+// stages, the rest is read a second time after the exchange (from L2 where
+// it fits), in the same launch. The range folds on integer order keys
+// (ranges.cuh; one redux.sync a warp) and the codes round by a float add
+// (quant_code): with a compare-and-select fold and rintf / float-to-int
+// conversions both phases are instruction-bound on the H100 and take
+// about twice as long warm.
+// Shares start on multiples of 64 elements, so no code byte is split
+// between blocks at <= 4 bits; the block that owns a sample's last byte at
+// odd n reads element 0 for the repeated high nibble. A share's staged
+// copy keeps the input's 16-byte phase, so the loads are whole vectors
+// with scalar head and tail elements; where the codes of a row of a B-stack
+// are not aligned as its input is (odd n), the staged reads go one by one.
+//
+// K2 is one launch and one pass: every code byte read once,
 // every output element written once, by vectors: a thread writes 16 bytes
 // of output a store (four floats or eight bf16) from one load of the 2 to
 // 16 bytes of codes they come from, four vectors a thread in flight, so a
@@ -34,12 +61,21 @@
 // packed nibbles, rows of other lengths) the vector loads them one by one.
 //
 // Numerics: IEEE subtract, multiply and divide through the _rn intrinsics
-// (never contracted, never fast-math) and rintf (round half to even, as
-// jnp.round), so codes are bit-identical to the reference; the decode uses
-// one fmaf so it rounds once, as the reference's jitted decode does.
+// (never contracted, never fast-math); K1 rounds the clipped code by a float
+// add of 1.5 * 2^23 (quant_code: half to even, as jnp.round, exact for
+// every code of at most 16 bits), so codes are bit-identical to the
+// reference; the decode uses one fmaf so it rounds once, as the
+// reference's jitted decode does.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "ranges.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -54,118 +90,354 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p,
   return __bfloat162float(p[i]);
 }
 
-// Min and max over the block; every thread returns the block's result.
-__device__ __forceinline__ void block_minmax(float& lo, float& hi) {
-  __shared__ float s_lo[32];
-  __shared__ float s_hi[32];
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  if (lane == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    lo = lane < n_warps ? s_lo[lane] : INFINITY;
-    hi = lane < n_warps ? s_hi[lane] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) {
-      s_lo[0] = lo;
-      s_hi[0] = hi;
-    }
-  }
-  __syncthreads();
-  lo = s_lo[0];
-  hi = s_hi[0];
-}
-
+// clip(rint((v - mn) * scale), 0, levels). The clip comes first (the same
+// code for every input, NaN included, which maps to 0); then adding 1.5 *
+// 2^23 rounds half to even, exactly below 2^22, and leaves the integer in
+// the low bits. Float subtract, multiply and add run at the full rate,
+// where rintf and a float-to-int conversion would take the SM's 16-a-clock
+// conversion pipe twice an element.
 __device__ __forceinline__ unsigned quant_code(float v, float mn, float scale,
                                                float levels) {
-  float q = rintf(__fmul_rn(__fsub_rn(v, mn), scale));
-  q = fminf(fmaxf(q, 0.0f), levels);
-  return static_cast<unsigned>(q);
+  const float y =
+      fminf(fmaxf(__fmul_rn(__fsub_rn(v, mn), scale), 0.0f), levels);
+  return __float_as_uint(__fadd_rn(y, 12582912.0f)) - 0x4B400000u;
 }
 
-// K1, launch 1: grid (parts, B). Block (p, b) reduces a grid-stride share
-// of sample b into partials[b * parts + p].
+// ---------------------------------------------------------------------------
+// K1
+// ---------------------------------------------------------------------------
+
+// Threads of a K1 block, and the 16-byte loads a thread has in flight.
+constexpr int kEncThreads = 512;
+constexpr int kEncUnroll = 4;
+// Shares start on multiples of this many elements (ops.py FE_SHARE_UNIT).
+constexpr long long kShareUnit = 64;
+// Variants (ops.py FE_VARIANTS).
+constexpr int kSolo = 0;
+constexpr int kGrid = 1;
+
+// One 16-byte load of the input: its elements and their fold.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-minmax_partials_kernel(const T* __restrict__ x, long long n,
-                       float* __restrict__ pmin, float* __restrict__ pmax) {
-  const int b = blockIdx.y;
-  const T* xs = x + static_cast<long long>(b) * n;
-  float lo = INFINITY;
-  float hi = -INFINITY;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const float v = load_f32(xs, i);
-    lo = fminf(lo, v);
-    hi = fmaxf(hi, v);
+struct In;
+
+template <>
+struct In<float> {
+  static constexpr int kVec = 4;
+  __device__ static void fold(const uint4& w, KeyRange& r) {
+    r.add(__uint_as_float(w.x));
+    r.add(__uint_as_float(w.y));
+    r.add(__uint_as_float(w.z));
+    r.add(__uint_as_float(w.w));
   }
-  block_minmax(lo, hi);
-  if (threadIdx.x == 0) {
-    pmin[b * gridDim.x + blockIdx.x] = lo;
-    pmax[b * gridDim.x + blockIdx.x] = hi;
+};
+
+template <>
+struct In<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static void fold(const uint4& w, KeyRange& r) {
+    const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r.add(__uint_as_float(words[i] << 16));
+      r.add(__uint_as_float(words[i] & 0xFFFF0000u));
+    }
+  }
+};
+
+// A thread's group of K1 outputs: kElems elements whose kUnits codes are
+// one store. MODE 0: 8 elements -> 4 nibble-packed bytes; MODE 1: 8
+// elements -> 8 u8 codes; MODE 2: 4 elements -> 4 u16 codes (8 bytes).
+template <int MODE>
+struct Group {
+  static constexpr int kElems = MODE == 2 ? 4 : 8;
+  static constexpr int kUnits = MODE == 0 ? 4 : kElems;
+};
+
+// kE staged elements from s + p as floats: vector reads where p is aligned
+// to them (16 bytes, or 8 for four bf16), else one by one.
+template <int kE>
+__device__ __forceinline__ void read_staged(const float* s, long long p,
+                                            bool aligned, float (&v)[kE]) {
+  if (aligned) {
+#pragma unroll
+    for (int i = 0; i < kE; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(s + p + i);
+      v[i] = f.x; v[i + 1] = f.y; v[i + 2] = f.z; v[i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kE; ++i) v[i] = s[p + i];
   }
 }
 
-// K1, launch 2: grid (blocks, B). Each block folds sample b's partials,
-// then quantizes (+ packs) a grid-stride share of the sample's outputs.
-// MODE 0: two codes per byte (element 2j low nibble, 2j+1 high nibble; an
-// odd count repeats element 0 in the last high nibble, as the reference's
-// first-element tile padding does). MODE 1: u8 codes. MODE 2: u16 codes.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads)
-quantize_pack_kernel(const T* __restrict__ x, long long n,
-                     const float* __restrict__ pmin,
-                     const float* __restrict__ pmax, int parts, float levels,
-                     float* __restrict__ mn_out, float* __restrict__ mx_out,
-                     void* __restrict__ out, long long out_n) {
-  const int b = blockIdx.y;
-  float lo = INFINITY;
-  float hi = -INFINITY;
-  for (int i = threadIdx.x; i < parts; i += blockDim.x) {
-    lo = fminf(lo, pmin[b * parts + i]);
-    hi = fmaxf(hi, pmax[b * parts + i]);
+template <int kE>
+__device__ __forceinline__ void read_staged(const __nv_bfloat16* s,
+                                            long long p, bool aligned,
+                                            float (&v)[kE]) {
+  if (aligned) {
+    unsigned w[kE / 2];
+    if constexpr (kE == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(s + p);
+      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(s + p);
+      w[0] = q.x; w[1] = q.y;
+    }
+#pragma unroll
+    for (int i = 0; i < kE / 2; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kE; ++i) v[i] = __bfloat162float(s[p + i]);
   }
-  block_minmax(lo, hi);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+}
+
+// The codes of one group, stored at o (aligned to the store: 4 bytes at
+// MODE 0, else 8).
+template <int MODE>
+__device__ __forceinline__ void store_group(void* o, const unsigned (&q)[8]) {
+  if (MODE == 0) {
+    *static_cast<uint32_t*>(o) =
+        (q[0] | q[1] << 4) | (q[2] | q[3] << 4) << 8 |
+        (q[4] | q[5] << 4) << 16 | (q[6] | q[7] << 4) << 24;
+  } else if (MODE == 1) {
+    *static_cast<uint2*>(o) =
+        make_uint2(q[0] | q[1] << 8 | q[2] << 16 | q[3] << 24,
+                   q[4] | q[5] << 8 | q[6] << 16 | q[7] << 24);
+  } else {
+    *static_cast<uint2*>(o) = make_uint2(q[0] | q[1] << 16,
+                                         q[2] | q[3] << 16);
+  }
+}
+
+// K1: grid (B * k) of kEncThreads threads; block g owns share r = g % k of
+// sample b = g / k: elements [e0, e1) with e_r = (r * units / k) *
+// kShareUnit, units = n / kShareUnit, and e_k = n. The first `cap`
+// elements of the staged layout (element e at p = e - base, which keeps
+// the input's phase mod 8) live in dynamic shared memory; elements past
+// cap are read again after the exchange. partials: (B * k) int2 scratch
+// of order keys (kGrid only, every slot written before the grid barrier).
+template <typename T, int MODE, int SYNC>
+__global__ void __launch_bounds__(kEncThreads, 1)
+fused_encode_kernel(const T* __restrict__ x, long long n, int k,
+                    long long cap, float levels, int2* __restrict__ partials,
+                    float* __restrict__ mn_out, float* __restrict__ mx_out,
+                    void* __restrict__ out, long long out_n) {
+  constexpr int V = In<T>::kVec;
+  using G = Group<MODE>;
+  constexpr int E = G::kElems;
+  // Elements a staged vector read takes at once: 16 bytes, at most E.
+  constexpr int AE = (E * sizeof(T) < 16 ? E * sizeof(T) : 16) / sizeof(T);
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* s = reinterpret_cast<T*>(s_raw);
+
+  const int b = blockIdx.x / k;
+  const int r = blockIdx.x - b * k;
+  const long long units = n / kShareUnit;
+  const long long e0 = r * units / k * kShareUnit;
+  const long long e1 = r == k - 1 ? n : (r + 1) * units / k * kShareUnit;
+  const T* xs = x + static_cast<long long>(b) * n;
+  const long long ph =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(xs) / sizeof(T)) & 7;
+  const long long base = ((ph + e0) & ~7ll) - ph;
+
+  // Phase 1: the share's (min, max), staging its first cap - (e0 - base)
+  // elements. Whole 16-byte vectors [va, va + nv * V), kEncUnroll loads a
+  // thread in flight; scalar head [e0, va) and tail elements, loaded
+  // before the first vector is folded.
+  KeyRange range;
+  const long long va = min(e1, e0 + (V - (ph + e0) % V) % V);
+  const long long nv = (e1 - va) / V;
+  const long long body_end = va + nv * V;
+  const long long n_edge = (va - e0) + (e1 - body_end);
+  long long e_edge = -1;
+  T t_edge;
+  if (threadIdx.x < n_edge) {
+    e_edge = threadIdx.x < va - e0 ? e0 + threadIdx.x
+                                   : body_end + (threadIdx.x - (va - e0));
+    t_edge = xs[e_edge];
+  }
+  const long long stride = static_cast<long long>(blockDim.x) * kEncUnroll;
+  for (long long v0 = threadIdx.x; v0 < nv; v0 += stride) {
+    uint4 w[kEncUnroll];
+#pragma unroll
+    for (int u = 0; u < kEncUnroll; ++u) {
+      const long long v = v0 + static_cast<long long>(u) * blockDim.x;
+      if (v < nv) w[u] = *reinterpret_cast<const uint4*>(xs + va + v * V);
+    }
+#pragma unroll
+    for (int u = 0; u < kEncUnroll; ++u) {
+      const long long v = v0 + static_cast<long long>(u) * blockDim.x;
+      if (v < nv) {
+        In<T>::fold(w[u], range);
+        const long long p = va + v * V - base;
+        if (p < cap) *reinterpret_cast<uint4*>(s + p) = w[u];
+      }
+    }
+  }
+  if (e_edge >= 0) {
+    range.add(load_f32(&t_edge, 0));
+    if (e_edge - base < cap) s[e_edge - base] = t_edge;
+  }
+  block_range(range);
+
+  // The exchange: the sample's range from its k blocks' pairs, folded by
+  // warp 0 and handed to the block through shared memory.
+  __shared__ int2 s_all;
+  if constexpr (SYNC == kGrid) {
+    if (threadIdx.x == 0) partials[blockIdx.x] = make_int2(range.lo, range.hi);
+    cg::this_grid().sync();
+    if (threadIdx.x < 32) {
+      KeyRange all;
+      for (int i = threadIdx.x; i < k; i += 32) {
+        const int2 pr = __ldcg(partials + static_cast<long long>(b) * k + i);
+        all.add(pr.x, pr.y);
+      }
+      warp_range(all);
+      if (threadIdx.x == 0) s_all = make_int2(all.lo, all.hi);
+    }
+    __syncthreads();
+    range.lo = s_all.x;
+    range.hi = s_all.y;
+  }
+  const float lo = range.min_value();
+  const float hi = range.max_value();
+  if (r == 0 && threadIdx.x == 0) {
     mn_out[b] = lo;
     mx_out[b] = hi;
   }
   const float scale = hi > lo ? __fdiv_rn(levels, __fsub_rn(hi, lo)) : 0.0f;
-  const T* xs = x + static_cast<long long>(b) * n;
-  const long long base = static_cast<long long>(b) * out_n;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       j < out_n; j += stride) {
-    if (MODE == 0) {
-      const long long i1 = 2 * j + 1;
-      const unsigned q0 = quant_code(load_f32(xs, 2 * j), lo, scale, levels);
-      const unsigned q1 =
-          quant_code(load_f32(xs, i1 < n ? i1 : 0), lo, scale, levels);
-      static_cast<uint8_t*>(out)[base + j] =
-          static_cast<uint8_t>(q0 | (q1 << 4));
-    } else if (MODE == 1) {
-      static_cast<uint8_t*>(out)[base + j] =
-          static_cast<uint8_t>(quant_code(load_f32(xs, j), lo, scale, levels));
+
+  // Phase 2: the share's codes. Output units (bytes at MODE 0, codes
+  // else) [j0, j1); groups of G::kUnits units start where their store is
+  // aligned, at element eg; the units before (head) and after (tail) them
+  // go one a thread.
+  const long long row = static_cast<long long>(b) * out_n;
+  const long long j0 = MODE == 0 ? e0 / 2 : e0;
+  const long long j1 = MODE == 0 ? (e1 + 1) / 2 : e1;
+  const long long jg =
+      min(j1, j0 + (G::kUnits - (row + j0) % G::kUnits) % G::kUnits);
+  const long long eg = MODE == 0 ? 2 * jg : jg;
+  const long long ng = e1 > eg ? (e1 - eg) / E : 0;
+  const bool aligned = (eg - base) % AE == 0;
+  using Unit = typename std::conditional<MODE == 2, uint16_t, uint8_t>::type;
+  Unit* o = static_cast<Unit*>(out) + row;
+  for (long long g = threadIdx.x; g < ng; g += blockDim.x) {
+    const long long e = eg + g * E;
+    const long long p = e - base;
+    float v[E];
+    if (p + E <= cap) {
+      read_staged<E>(s, p, aligned, v);
     } else {
-      static_cast<uint16_t*>(out)[base + j] = static_cast<uint16_t>(
-          quant_code(load_f32(xs, j), lo, scale, levels));
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        v[i] = p + i < cap ? load_f32(s, p + i) : load_f32(xs, e + i);
+    }
+    unsigned q[8];
+#pragma unroll
+    for (int i = 0; i < E; ++i) q[i] = quant_code(v[i], lo, scale, levels);
+    store_group<MODE>(o + jg + g * G::kUnits, q);
+  }
+  const long long jt = jg + ng * G::kUnits;
+  const long long n_units = (jg - j0) + (j1 - jt);
+  if (threadIdx.x < n_units) {
+    const long long j = threadIdx.x < jg - j0 ? j0 + threadIdx.x
+                                              : jt + (threadIdx.x - (jg - j0));
+    // Element e of the sample: staged where it is, else from x.
+    auto elem = [&](long long e) {
+      return e >= e0 && e < e1 && e - base < cap ? load_f32(s, e - base)
+                                                 : load_f32(xs, e);
+    };
+    if (MODE == 0) {
+      const unsigned q0 = quant_code(elem(2 * j), lo, scale, levels);
+      const unsigned q1 =
+          quant_code(elem(2 * j + 1 < n ? 2 * j + 1 : 0), lo, scale, levels);
+      o[j] = static_cast<Unit>(q0 | q1 << 4);
+    } else {
+      o[j] = static_cast<Unit>(quant_code(elem(j), lo, scale, levels));
     }
   }
 }
+
+template <typename T, int MODE, int SYNC>
+int launch_encode(const T* x, int batch, long long n, int k, long long cap,
+                  int smem_bytes, float levels, int2* partials, float* mn,
+                  float* mx, void* out, long long out_n,
+                  cudaStream_t stream) {
+  auto kernel = fused_encode_kernel<T, MODE, SYNC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(batch) * k);
+  if constexpr (SYNC == kGrid) {
+    void* args[] = {&x, &n, &k, &cap, &levels, &partials, &mn, &mx, &out,
+                    &out_n};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                      dim3(kEncThreads), args, smem_bytes,
+                                      stream);
+  } else {
+    kernel<<<grid, kEncThreads, smem_bytes, stream>>>(
+        x, n, k, cap, levels, partials, mn, mx, out, out_n);
+  }
+  // A refused launch is reported once, here: clear it so that the next
+  // launch's check does not see it again.
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <typename T, int MODE>
+int encode_variant(int variant, const T* x, int batch, long long n, int k,
+                   long long cap, int smem_bytes, float levels,
+                   int2* partials, float* mn, float* mx, void* out,
+                   long long out_n, cudaStream_t s) {
+  if (variant == kSolo)
+    return launch_encode<T, MODE, kSolo>(x, batch, n, k, cap, smem_bytes,
+                                         levels, partials, mn, mx, out, out_n,
+                                         s);
+  return launch_encode<T, MODE, kGrid>(x, batch, n, k, cap, smem_bytes,
+                                       levels, partials, mn, mx, out, out_n,
+                                       s);
+}
+
+template <typename T>
+int encode_dispatch(int variant, const T* x, int batch, long long n,
+                    int bits, int k, long long cap, int smem_bytes,
+                    int2* partials, float* mn, float* mx, void* out,
+                    long long out_n, cudaStream_t s) {
+  const float levels = static_cast<float>((1u << bits) - 1u);
+  if (bits <= 4)
+    return encode_variant<T, 0>(variant, x, batch, n, k, cap, smem_bytes,
+                                levels, partials, mn, mx, out, out_n, s);
+  if (bits <= 8)
+    return encode_variant<T, 1>(variant, x, batch, n, k, cap, smem_bytes,
+                                levels, partials, mn, mx, out, out_n, s);
+  return encode_variant<T, 2>(variant, x, batch, n, k, cap, smem_bytes,
+                              levels, partials, mn, mx, out, out_n, s);
+}
+
+// Blocks of the grid variant of (T, MODE) the card holds at once with
+// smem_bytes of dynamic shared memory each.
+template <typename T, int MODE>
+int resident_blocks(int smem_bytes, int* blocks) {
+  auto kernel = fused_encode_kernel<T, MODE, kGrid>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kEncThreads, smem_bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = per_sm * sms;
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
 
 // Output elements before the first 16-byte-aligned one at p (p is aligned
 // to its element size).
@@ -328,29 +600,6 @@ dequant_kernel(const void* __restrict__ codes, long long in_n, long long n,
   }
 }
 
-template <typename T>
-int launch_encode(const T* x, int batch, long long n, int bits, float* pmin,
-                  float* pmax, int parts, int blocks, float* mn, float* mx,
-                  void* out, long long out_n, cudaStream_t stream) {
-  const float levels = static_cast<float>((1u << bits) - 1u);
-  minmax_partials_kernel<T><<<dim3(parts, batch), kThreads, 0, stream>>>(
-      x, n, pmin, pmax);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(blocks, batch);
-  if (bits <= 4) {
-    quantize_pack_kernel<T, 0><<<grid, kThreads, 0, stream>>>(
-        x, n, pmin, pmax, parts, levels, mn, mx, out, out_n);
-  } else if (bits <= 8) {
-    quantize_pack_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
-        x, n, pmin, pmax, parts, levels, mn, mx, out, out_n);
-  } else {
-    quantize_pack_kernel<T, 2><<<grid, kThreads, 0, stream>>>(
-        x, n, pmin, pmax, parts, levels, mn, mx, out, out_n);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int MODE, typename OutT>
 int launch_decode(const void* codes, int batch, long long in_n, long long n,
                   const float* mn, const float* mx, float recip, OutT* out,
@@ -386,19 +635,48 @@ int decode_dispatch(const void* codes, int mode, int batch, long long in_n,
 
 extern "C" {
 
-// K1: x (B, n) f32 (in_bf16 = 0) or bf16 -> out (B, out_n) codes,
-// mn/mx (B,). pmin/pmax are (B, parts) scratch. Two launches.
+// K1: x (B, n) f32 (in_bf16 = 0) or bf16 -> out (B, out_n) codes (16-byte
+// aligned), mn / mx (B,). One launch of B * k blocks: variant 0 (solo, k =
+// 1) or 1 (cooperative grid; partials holds B * k int2). Each block stages cap elements (a multiple of 8) in
+// smem_bytes of dynamic shared memory. The host sizes all of them
+// (kernels/quantize/ops.py fused_encode_plan).
 int jalad_fused_encode(const void* x, int in_bf16, int batch, long long n,
-                       int bits, float* pmin, float* pmax, int parts,
-                       int blocks, float* mn, float* mx, void* out,
-                       long long out_n, void* stream) {
+                       int bits, int variant, int k, long long cap,
+                       int smem_bytes, float* partials, float* mn, float* mx,
+                       void* out, long long out_n, void* stream) {
+  const long long esize = in_bf16 ? 2 : 4;
+  const bool k_ok =
+      variant == kSolo ? k == 1 : variant == kGrid && k >= 1;
+  if (!k_ok || batch < 1 || n < 1 || bits < 1 || bits > 16 || cap < 8 ||
+      cap % 8 != 0 || smem_bytes < cap * esize ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(partials) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int2* pairs = reinterpret_cast<int2*>(partials);
   if (in_bf16) {
-    return launch_encode(static_cast<const __nv_bfloat16*>(x), batch, n, bits,
-                         pmin, pmax, parts, blocks, mn, mx, out, out_n, s);
+    return encode_dispatch(variant, static_cast<const __nv_bfloat16*>(x),
+                           batch, n, bits, k, cap, smem_bytes, pairs, mn, mx,
+                           out, out_n, s);
   }
-  return launch_encode(static_cast<const float*>(x), batch, n, bits, pmin,
-                       pmax, parts, blocks, mn, mx, out, out_n, s);
+  return encode_dispatch(variant, static_cast<const float*>(x), batch, n,
+                         bits, k, cap, smem_bytes, pairs, mn, mx, out, out_n,
+                         s);
+}
+
+// K1's grid variant: blocks the card holds at once for x of in_bf16 at
+// bits, with smem_bytes of dynamic shared memory a block, into *blocks.
+int jalad_fused_encode_resident(int in_bf16, int bits, int smem_bytes,
+                                int* blocks) {
+  if (in_bf16) {
+    using B = __nv_bfloat16;
+    if (bits <= 4) return resident_blocks<B, 0>(smem_bytes, blocks);
+    if (bits <= 8) return resident_blocks<B, 1>(smem_bytes, blocks);
+    return resident_blocks<B, 2>(smem_bytes, blocks);
+  }
+  if (bits <= 4) return resident_blocks<float, 0>(smem_bytes, blocks);
+  if (bits <= 8) return resident_blocks<float, 1>(smem_bytes, blocks);
+  return resident_blocks<float, 2>(smem_bytes, blocks);
 }
 
 // K2: codes (B, in_n) + ranges mn / mx (B,) -> out (B, n) f32

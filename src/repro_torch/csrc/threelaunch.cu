@@ -9,9 +9,10 @@
 // K6a  range partials — replaces repro/kernels/quantize/quantize.py
 //      `minmax_blocks` (Pallas `_minmax_kernel`). Block p reduces the
 //      contiguous chunk [p * chunk, (p + 1) * chunk) of an f32 or bf16 input
-//      to one f32 (min, max) pair. The partials are folded outside the
-//      kernels (torch.amin / torch.amax on the card), as the reference folds
-//      them with jnp.min / jnp.max. Bound: the input read once (12.85 MB for
+//      to one f32 (min, max) pair, in the reference's order -0.0 < +0.0
+//      (ranges.cuh). The partials are folded outside the kernels
+//      (ordered_amin / ordered_amax of repro_torch.core.quantization on the
+//      card), as the reference folds them with jnp.min / jnp.max. Bound: the input read once (12.85 MB for
 //      the ResNet-50 stem boundary at batch 4: 3.8 us at 3.35 TB/s).
 // K6b  quantize — replaces `quantize_blocks` (`_quantize_kernel`).
 //      q = clip(rint((x - mn) * scale), 0, 2^c - 1) with one scalar (mn,
@@ -27,7 +28,7 @@
 // the simplest that is right: one element (K6a, K6b) or one output byte
 // (K6c) per thread per step, neighbouring threads on neighbouring elements
 // so every load and store coalesces. Vector loads and fusing the fold into
-// K6b are later work; K1 already does the whole chain in two launches.
+// K6b are later work; K1 does the whole chain in one launch.
 //
 // Numerics: __fsub_rn / __fmul_rn are never contracted into an FMA, and
 // rintf rounds half to even as jnp.round does, so the codes are the bits of
@@ -35,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "ranges.cuh"
 
 namespace {
 
@@ -54,35 +57,15 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 minmax_blocks_kernel(const T* __restrict__ x, long long n, long long chunk,
                      float* __restrict__ pmin, float* __restrict__ pmax) {
-  __shared__ float s_lo[kThreads / 32];
-  __shared__ float s_hi[kThreads / 32];
   const long long begin = static_cast<long long>(blockIdx.x) * chunk;
   const long long end = begin + chunk < n ? begin + chunk : n;
-  float lo = INFINITY;
-  float hi = -INFINITY;
-  for (long long i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const float v = load_f32(x, i);
-    lo = fminf(lo, v);
-    hi = fmaxf(hi, v);
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-  }
-  __syncthreads();
+  KeyRange r;
+  for (long long i = begin + threadIdx.x; i < end; i += blockDim.x)
+    r.add(load_f32(x, i));
+  block_range(r);
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) {
-      lo = fminf(lo, s_lo[w]);
-      hi = fmaxf(hi, s_hi[w]);
-    }
-    pmin[blockIdx.x] = lo;
-    pmax[blockIdx.x] = hi;
+    pmin[blockIdx.x] = r.min_value();
+    pmax[blockIdx.x] = r.max_value();
   }
 }
 

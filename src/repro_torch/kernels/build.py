@@ -5,8 +5,9 @@ library with a plain C interface, loaded with :mod:`ctypes`. The first
 :func:`load` builds every source that is not built yet, all ``nvcc``
 processes started together, into ``build/repro_torch/`` at the root of the
 checkout (``REPRO_TORCH_BUILD_DIR`` overrides it). A library's file name
-carries a hash of its source, so an edited source rebuilds and a stale
-library is never loaded.
+carries a hash of its source and of the shared headers (``csrc/*.cuh``),
+so an edited source or header rebuilds and a stale library is never
+loaded.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, IEEE
 division and square root (nvcc's default; never ``--use_fast_math``), and
@@ -54,9 +55,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, Path]:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import entropy as ent
-from repro_torch.core.quantization import affine_scale
+from repro_torch.core.quantization import affine_scale, ordered_aminmax
 from repro_torch.kernels import build
 from repro_torch.kernels.counters import bump
 
@@ -63,8 +63,7 @@ def _hist_ranges(xb: torch.Tensor, bits: int):
     counted codes are the ones K3 re-derives."""
     bsz = xb.shape[0]
     xf = xb.to(torch.float32)
-    mn = xf.amin(dim=1)
-    mx = xf.amax(dim=1)
+    mn, mx = ordered_aminmax(xf, 1)
     levels = (1 << bits) - 1
     scale = affine_scale(mn, mx, bits)
     q = torch.clamp(torch.round((xf - mn[:, None]) * scale[:, None]),

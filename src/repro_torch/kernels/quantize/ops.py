@@ -17,15 +17,15 @@ reference's channel-major wire layout, exactly ``W = ceil(L / (32 //
 bits))`` per channel.
 
 The launch counters (:mod:`repro_torch.kernels.counters`) count CUDA
-kernel launches: K1 is two (range reduction, then quantize + pack), K2,
-K4, K5 and each of K6a, K6b, K6c one.
+kernel launches: K1, K2, K4, K5 and each of K6a, K6b, K6c one a call.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,8 @@ from repro_torch.core.quantization import (
     affine_scale,
     dequant_recip,
     dequant_step,
+    ordered_amax,
+    ordered_amin,
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.counters import (  # noqa: F401  (re-exported)
@@ -93,33 +95,132 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
                          f"{t.device}")
 
 
+# K1 (``csrc/quantize.cu``): one launch a call, in one of two variants
+# that differ in how the blocks of a sample exchange their (min, max):
+# "solo" (one block a sample) and "grid" (a cooperative launch of at most
+# the blocks the card holds at once, split evenly over the samples).
+# A block (512 threads) stages its share of the sample in at most
+# FE_STAGE_BYTES of shared memory and reads the rest of the share again
+# after the exchange. Shares start on multiples of FE_SHARE_UNIT elements.
+FE_VARIANTS = ("solo", "grid")
+FE_SHARE_UNIT = 64
+FE_STAGE_BYTES = 200 * 1024
+# fused_encode_plan picks "solo" for samples of at most this many elements
+# and "grid" above: on the H100 (chip_smoke.py's K1 sweep) one block beat
+# the grid at 8,192 float32 elements, tied at 16,384 and lost from 32,768
+# up.
+FE_SOLO_MAX = 16_384
+
+
+@dataclass(frozen=True)
+class FusedEncodePlan:
+    """K1's launch: ``variant``, ``blocks`` a sample, the elements a block
+    stages (a multiple of 8) and its dynamic shared memory."""
+    variant: str
+    blocks: int
+    stage_elems: int
+    smem_bytes: int
+
+
+def fused_encode_shares(n: int, blocks: int):
+    """The elements ``[e0, e1)`` of a sample each of its ``blocks`` blocks
+    owns; the kernel splits the same way."""
+    units = n // FE_SHARE_UNIT
+    return [(r * units // blocks * FE_SHARE_UNIT,
+             n if r == blocks - 1
+             else (r + 1) * units // blocks * FE_SHARE_UNIT)
+            for r in range(blocks)]
+
+
+def fused_encode_plan(bsz: int, n: int, in_bf16: bool, resident: int,
+                      variant: Optional[str] = None) -> FusedEncodePlan:
+    """K1's launch for a (B, n) stack of float32 (or bfloat16) samples on a
+    card that holds ``resident`` blocks of the grid variant at once.
+    ``variant`` forces the variant (None picks it by size); a forced
+    variant that cannot hold the stack raises ``ValueError``."""
+    esize = 2 if in_bf16 else 4
+    cap = FE_STAGE_BYTES // esize
+    most = max(1, n // FE_SHARE_UNIT)          # blocks with a share each
+    if variant is None:
+        variant = "solo" if n <= FE_SOLO_MAX or bsz > resident else "grid"
+    if variant not in FE_VARIANTS:
+        raise ValueError(f"fused_encode: no variant {variant!r}")
+    blocks = 1 if variant == "solo" else min(resident // bsz, most)
+    if blocks < 1:
+        raise ValueError(f"fused_encode: the {variant} variant cannot hold "
+                         f"({bsz}, {n}) on a card of {resident} resident "
+                         "blocks")
+    longest = max(e1 - e0 for e0, e1 in fused_encode_shares(n, blocks))
+    stage = min(-(-(longest + 7) // 8) * 8, cap)
+    return FusedEncodePlan(variant, blocks, stage, stage * esize)
+
+
+def _code_mode(bits: int) -> int:
+    """The kernels' code layout: 0 nibble-packed u8, 1 u8, 2 u16."""
+    return 0 if bits <= 4 else (1 if bits <= 8 else 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, in_bf16: bool, mode: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        fn = _fn("quantize", "jalad_fused_encode_resident",
+                 [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+        build.check(fn(int(in_bf16), (4, 8, 16)[mode], FE_STAGE_BYTES,
+                       ctypes.byref(out)), "fused_encode occupancy")
+    return out.value
+
+
+def fused_encode_resident(device: torch.device, in_bf16: bool,
+                          bits: int) -> int:
+    """Blocks of K1's grid variant the card holds at once with a full
+    FE_STAGE_BYTES stage each (the occupancy query times the SM count),
+    queried once a device, input type and code layout."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _resident(index, in_bf16, _code_mode(bits))
+
+
 def fused_encode(xb: torch.Tensor, bits: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on a (B, n) stack, n >= 1: (codes (B, wire_len), mn (B,), mx (B,))."""
     _check_bits(bits)
     if xb.device.type == "cpu":
         return ref.fused_encode_ref(xb, bits)
+    return _fused_encode_cuda(xb, bits)
+
+
+def _fused_encode_cuda(xb: torch.Tensor, bits: int,
+                       variant: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's launch; ``variant`` forces the variant (``fused_encode`` lets
+    :func:`fused_encode_plan` pick it)."""
     _check_cuda(xb, "fused_encode")
     if xb.dtype not in (torch.float32, torch.bfloat16):
         xb = xb.to(torch.float32)
     xb = xb.contiguous()
     bsz, n = xb.shape
+    in_bf16 = xb.dtype == torch.bfloat16
+    plan = fused_encode_plan(bsz, n, in_bf16,
+                             fused_encode_resident(xb.device, in_bf16, bits),
+                             variant)
     out_n = wire_len(n, bits)
-    parts = _grid(n, bsz)
-    blocks = _grid(out_n, bsz)
     dev = xb.device
-    pmin = torch.empty((bsz, parts), dtype=torch.float32, device=dev)
-    pmax = torch.empty_like(pmin)
-    mn = torch.empty((bsz,), dtype=torch.float32, device=dev)
-    mx = torch.empty_like(mn)
+    # One float32 buffer: mn (B,), mx (B,), then the grid's (B * blocks)
+    # (min, max) pairs.
+    grid_pairs = bsz * plan.blocks if plan.variant == "grid" else 0
+    ranges = torch.empty((2 * bsz + 2 * grid_pairs,), dtype=torch.float32,
+                         device=dev)
+    mn, mx, pairs = ranges[:bsz], ranges[bsz:2 * bsz], ranges[2 * bsz:]
     codes = torch.empty((bsz, out_n), dtype=code_dtype(bits), device=dev)
     fn = _fn("quantize", "jalad_fused_encode",
-             [_P, _I, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _L, _P])
-    status = fn(_ptr(xb), int(xb.dtype == torch.bfloat16), bsz, n, bits,
-                _ptr(pmin), _ptr(pmax), parts, blocks, _ptr(mn), _ptr(mx),
-                _ptr(codes), out_n, _stream())
+             [_P, _I, _I, _L, _I, _I, _I, _L, _I, _P, _P, _P, _P, _L, _P])
+    status = fn(_ptr(xb), int(in_bf16), bsz, n, bits,
+                FE_VARIANTS.index(plan.variant), plan.blocks,
+                plan.stage_elems, plan.smem_bytes, _ptr(pairs), _ptr(mn),
+                _ptr(mx), _ptr(codes), out_n, _stream())
     build.check(status, "fused_encode")
-    bump("fused_encode", 2)
+    bump("fused_encode")
     return codes, mn, mx
 
 
@@ -569,15 +670,15 @@ def quantize_pack_threelaunch(x: torch.Tensor, bits: int
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The three-launch edge encode: K6a range partials (folded with
-    ``torch.amin`` / ``torch.amax`` on the device), K6b quantize, then K6c
-    pack at bits <= 4, the codes making a round trip through device memory
-    in between. Returns ``(flat wire codes, mn, mx)``, byte-identical to
+    ``ordered_amin`` / ``ordered_amax`` on the device), K6b quantize, then
+    K6c pack at bits <= 4, the codes making a round trip through device
+    memory in between. Returns ``(flat wire codes, mn, mx)``, byte-identical to
     :func:`quantize_pack` (K1); 3 launches at bits <= 4, 2 above."""
     _check_bits(bits)
     if x.numel() == 0:
         return quantize_pack(x, bits)
     pmin, pmax = minmax_blocks(x)
-    mn, mx = torch.amin(pmin), torch.amax(pmax)
+    mn, mx = ordered_amin(pmin), ordered_amax(pmax)
     codes = quantize_blocks(x, mn, affine_scale(mn, mx, bits), bits)
     if bits <= 4:
         codes = pack4_blocks(codes)

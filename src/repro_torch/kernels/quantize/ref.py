@@ -19,6 +19,9 @@ from repro_torch.core.quantization import (
     affine_scale,
     dequant_step,
     fma_f32,
+    ordered_amax,
+    ordered_amin,
+    ordered_aminmax,
     pack_bits,
     unpack_bits,
 )
@@ -38,13 +41,14 @@ def fused_encode_ref(xb: torch.Tensor, bits: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: (B, n) float -> (codes (B, wire_len), mn (B,), mx (B,)).
 
-    Per-sample min/max, ``clip(round((x - mn) * scale), 0, 2^c - 1)``,
-    then nibble pairs ``lo | hi << 4`` (c <= 4; an odd count repeats
-    element 0 in the last high nibble), u8 (c <= 8) or u16 codes."""
+    Per-sample min/max (:func:`ordered_aminmax`: the reference's
+    ``-0.0 < +0.0``), ``clip(round((x - mn) * scale), 0,
+    2^c - 1)``, then nibble pairs ``lo | hi << 4`` (c <= 4; an odd count
+    repeats element 0 in the last high nibble), u8 (c <= 8) or u16
+    codes."""
     bsz, n = xb.shape
     xf = xb.to(torch.float32)
-    mn = xf.amin(dim=1)
-    mx = xf.amax(dim=1)
+    mn, mx = ordered_aminmax(xf, 1)
     levels = (1 << bits) - 1
     scale = affine_scale(mn, mx, bits)
     q = torch.clamp(torch.round((xf - mn[:, None]) * scale[:, None]),
@@ -100,15 +104,15 @@ def pc_encode_ref(xb: torch.Tensor, bits: int, axis: int
     """K4: (B, *shape) float -> (words (B, C, W) int32 holding u32 bit
     patterns, mn (B, C), mx (B, C)).
 
-    Per-(sample, channel) min/max, ``clip(round((x - mn) * scale), 0,
-    2^c - 1)``, then :func:`pack_bits` along each channel: codes past the
-    channel's length L are 0 and channels never share a word."""
+    Per-(sample, channel) min/max in the order of :func:`ordered_amin`,
+    ``clip(round((x - mn) * scale), 0, 2^c - 1)``, then :func:`pack_bits`
+    along each channel: codes past the channel's length L are 0 and
+    channels never share a word."""
     bsz = xb.shape[0]
     outer, c, inner = channel_dims(xb.shape[1:], axis)
     xc = (xb.to(torch.float32).reshape(bsz, outer, c, inner)
           .transpose(1, 2).reshape(bsz, c, outer * inner))
-    mn = xc.amin(dim=2)
-    mx = xc.amax(dim=2)
+    mn, mx = ordered_aminmax(xc, 2)
     scale = affine_scale(mn, mx, bits)
     q = torch.clamp(torch.round((xc - mn[..., None]) * scale[..., None]),
                     0, (1 << bits) - 1)
@@ -159,8 +163,8 @@ def minmax_blocks_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     pad = parts * chunk - n
     lo = torch.cat([xf, xf.new_full((pad,), float("inf"))])
     hi = torch.cat([xf, xf.new_full((pad,), float("-inf"))])
-    return (lo.reshape(parts, chunk).amin(dim=1),
-            hi.reshape(parts, chunk).amax(dim=1))
+    return (ordered_amin(lo.reshape(parts, chunk), 1),
+            ordered_amax(hi.reshape(parts, chunk), 1))
 
 
 def quantize_blocks_ref(x: torch.Tensor, mn: torch.Tensor,

@@ -30,8 +30,10 @@ def _features(shape, seed=0):
 
 
 def _fields(blob):
+    """A blob's fields, the range header by bytes (``-0.0 != +0.0``)."""
     return (blob.codec, blob.payload, tuple(blob.shape), blob.bits,
-            np.float32(blob.x_min), np.float32(blob.x_max))
+            np.float32(blob.x_min).tobytes(),
+            np.float32(blob.x_max).tobytes())
 
 
 def _as(cls, blob):

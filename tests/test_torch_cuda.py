@@ -34,6 +34,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _same_bits(a, b):
+    """Equal float32 tensors bit for bit (``torch.equal`` takes -0.0 for
+    +0.0)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _features(shape, seed=0):
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
     x[np.abs(x) < 0.3] = 0.0
@@ -47,10 +53,10 @@ def test_encode_decode_match_plain(cuda, bits):
         n = shape[1]
         with qops.count_launches() as box:
             codes, mn, mx = qops.fused_encode(xb, bits)
-        assert box.counts["fused_encode"] == 2
+        assert box.counts["fused_encode"] == 1
         pc, pmn, pmx = qref.fused_encode_ref(xb, bits)
         assert torch.equal(codes, pc)
-        assert torch.equal(mn, pmn) and torch.equal(mx, pmx)
+        assert _same_bits(mn, pmn) and _same_bits(mx, pmx)
         step = tq.dequant_step(mn, mx, bits)
         layouts = [(codes, bits <= 4)]
         if bits <= 4:
@@ -66,6 +72,80 @@ def test_encode_decode_match_plain(cuda, bits):
         xh = xb.to(torch.bfloat16)
         assert torch.equal(qops.fused_encode(xh, bits)[0],
                            qref.fused_encode_ref(xh, bits)[0])
+    torch.cuda.synchronize()
+
+
+FE_BITS = (2, 3, 4, 5, 8, 16)
+
+
+def _encode_matches_plain(xb, bits, variant=None):
+    """K1 (``variant`` forced, or picked) against the plain version: codes
+    byte-identical, ranges bit-identical, one launch."""
+    with qops.count_launches() as box:
+        got = qops._fused_encode_cuda(xb, bits, variant)
+    assert box.counts["fused_encode"] == 1
+    want = qref.fused_encode_ref(xb, bits)
+    assert torch.equal(got[0], want[0]), (tuple(xb.shape), bits, variant)
+    assert _same_bits(got[1], want[1]) and _same_bits(got[2], want[2])
+    return got
+
+
+@pytest.mark.parametrize("bits", FE_BITS)
+def test_fused_encode_variants_match_plain(cuda, bits):
+    """Each variant forced, in float32 and bfloat16, at odd n (rows of a
+    B-stack that start off every 16-byte boundary, a last byte that
+    repeats element 0), and B-stacks equal to single calls."""
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    for bsz, n in [(1, 4551), (3, 70_001), (2, 401_409)]:
+        x = torch.randn((bsz, n), device=cuda, generator=gen)
+        x = torch.relu(x) - 0.25 * (x < -1)
+        for xb in (x, x.to(torch.bfloat16)):
+            bf16 = xb.dtype == torch.bfloat16
+            resident = qops.fused_encode_resident(cuda, bf16, bits)
+            for variant in qops.FE_VARIANTS:
+                plan = qops.fused_encode_plan(bsz, n, bf16, resident,
+                                              variant)
+                assert plan.variant == variant
+                codes, mn, mx = _encode_matches_plain(xb, bits, variant)
+                for b in range(bsz):
+                    one = _encode_matches_plain(xb[b:b + 1], bits, variant)
+                    assert torch.equal(one[0][0], codes[b])
+                    assert _same_bits(one[1], mn[b:b + 1])
+    torch.cuda.synchronize()
+
+
+def test_fused_encode_past_the_staged_capacity_matches_plain(cuda):
+    """A (4, 4,194,304) float32 stack: 64 MiB, more than the card stages,
+    so every block reads part of its share a second time."""
+    xb = torch.relu(torch.randn((4, 4_194_304), device=cuda))
+    plan = qops.fused_encode_plan(4, 4_194_304, False,
+                                  qops.fused_encode_resident(cuda, False, 8))
+    assert plan.variant == "grid"
+    assert plan.stage_elems < 4_194_304 // plan.blocks
+    for bits in (4, 8, 16):
+        _encode_matches_plain(xb, bits)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("zeros", ("+0 first", "-0 first"))
+def test_fused_encode_signed_zero_ranges_match_plain(cuda, zeros):
+    """Samples whose minimum or maximum is a zero of both signs: the
+    ranges equal the plain version's (the reference's) bit for bit in
+    every variant, whatever order the blocks fold in."""
+    z = [0.0, -0.0] if zeros == "+0 first" else [-0.0, 0.0]
+    for bsz, n in [(1, 4551), (2, 70_001), (1, 802_816)]:
+        rows = []
+        for b in range(bsz):
+            pattern = z + [1.0, 2.0] if b % 2 == 0 else [-1.0, -2.0] + z
+            rows.append(np.resize(np.array(pattern, np.float32), n))
+        xb = torch.from_numpy(np.stack(rows)).to(cuda)
+        for variant in qops.FE_VARIANTS:
+            for bits in (4, 8):
+                _, mn, mx = _encode_matches_plain(xb, bits, variant)
+                want = np.array([-0.0 if b % 2 == 0 else -2.0
+                                 for b in range(bsz)], np.float32)
+                assert np.array_equal(mn.cpu().numpy().view(np.int32),
+                                      want.view(np.int32))
     torch.cuda.synchronize()
 
 
@@ -197,6 +277,13 @@ def _device_kernels(fn, reps=4, tries=5):
 def test_decodes_run_one_device_kernel_a_call(cuda):
     xb = torch.relu(torch.randn((3, 4551), device=cuda))
     codes, mn, mx = qops.fused_encode(xb, 4)
+    # K1 too: one kernel and no memset, in every variant.
+    x1 = torch.relu(torch.randn((1, 802_816), device=cuda))
+    for variant in qops.FE_VARIANTS:
+        kernels = _device_kernels(lambda: qops._fused_encode_cuda(
+            x1, 8, variant))
+        assert list(kernels.values()) == [1], (variant, kernels)
+        assert "fused_encode" in next(iter(kernels))
     kernels = _device_kernels(lambda: qops.fused_decode(codes, mn, mx, 4,
                                                         4551, True))
     assert list(kernels.values()) == [1], kernels

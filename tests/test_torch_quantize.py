@@ -200,3 +200,78 @@ def test_launch_counters_do_not_move_on_the_cpu():
     with qops.count_launches() as box:
         qops.quantize_pack(torch.randn(10), 8)
     assert box.counts["fused_encode"] == 0
+
+
+# K1's launch plan (a pure function of the shape; the card's resident block
+# count is an argument, 132 being one block a stage on each H100 SM).
+PLAN_SHAPES = [(1, 1, False), (1, 63, False), (1, 4000, False),
+               (3, 4551, True), (1, 401_408, False), (1, 802_816, False),
+               (4, 802_816, False), (4, 802_816, True),
+               (1, 3_211_264, False), (4, 4_194_304, False),
+               (200, 100_000, False)]
+
+
+@pytest.mark.parametrize("case", PLAN_SHAPES, ids=str)
+def test_fused_encode_plan_shares_and_stage(case):
+    bsz, n, bf16 = case
+    esize = 2 if bf16 else 4
+    plan = qops.fused_encode_plan(bsz, n, bf16, 132)
+    variants = [(plan.variant, plan.blocks)]
+    for forced in qops.FE_VARIANTS:
+        try:
+            p = qops.fused_encode_plan(bsz, n, bf16, 132, forced)
+        except ValueError:
+            continue
+        variants.append((p.variant, p.blocks))
+        assert p.smem_bytes == p.stage_elems * esize
+        assert p.stage_elems % 8 == 0
+        assert p.smem_bytes <= qops.FE_STAGE_BYTES
+        if forced == "grid":
+            assert bsz * p.blocks <= 132
+    for variant, blocks in variants:
+        # Every sample gets at least one block; the shares cover [0, n)
+        # without overlap, each non-empty, and start on even elements (no
+        # nibble-packed byte is split between blocks).
+        assert blocks >= 1
+        shares = qops.fused_encode_shares(n, blocks)
+        assert len(shares) == blocks
+        assert shares[0][0] == 0 and shares[-1][1] == n
+        for (a0, a1), (b0, _) in zip(shares, shares[1:]):
+            assert a1 == b0
+        assert all(e1 > e0 and e0 % 2 == 0 for e0, e1 in shares)
+
+
+def test_fused_encode_plan_picks_variants_at_the_stated_sizes():
+    solo_max = qops.FE_SOLO_MAX
+    assert qops.fused_encode_plan(1, solo_max, False, 132).variant == "solo"
+    above = qops.fused_encode_plan(1, solo_max + 1, False, 132)
+    assert above.variant == "grid" and above.blocks == min(
+        132, (solo_max + 1) // qops.FE_SHARE_UNIT)
+    # The served stem_pool boundary and the pipeline's micro-batch: every
+    # resident block, split evenly, staged whole.
+    one = qops.fused_encode_plan(1, 802_816, False, 132)
+    four = qops.fused_encode_plan(4, 802_816, False, 132)
+    assert (one.variant, one.blocks) == ("grid", 132)
+    assert (four.variant, four.blocks) == ("grid", 33)
+    assert four.stage_elems >= 802_816 // 33
+    # More samples than resident blocks: one block a sample.
+    assert qops.fused_encode_plan(133, 10 ** 6, False, 132).variant == "solo"
+    # Past what the card stages: the same grid, each block's stage full.
+    big = qops.fused_encode_plan(4, 4_194_304, False, 132)
+    assert big.variant == "grid"
+    assert big.smem_bytes == qops.FE_STAGE_BYTES
+    assert 4 * 4_194_304 * 4 > 132 * qops.FE_STAGE_BYTES
+
+
+def test_fused_encode_plan_rejects_forced_variants_that_cannot_hold():
+    with pytest.raises(ValueError):      # more samples than resident blocks
+        qops.fused_encode_plan(133, 10 ** 5, False, 132, "grid")
+    with pytest.raises(ValueError):      # in bfloat16 too
+        qops.fused_encode_plan(4, 10 ** 5, True, 3, "grid")
+    with pytest.raises(ValueError):      # a card that holds no block
+        qops.fused_encode_plan(1, 10 ** 5, False, 0, "grid")
+    with pytest.raises(ValueError):
+        qops.fused_encode_plan(1, 100, False, 132, "warp")
+    # One block a sample holds any stack.
+    assert qops.fused_encode_plan(133, 10 ** 5, False, 132,
+                                  "solo").blocks == 1
