@@ -70,7 +70,25 @@ NVIDIA card.
    agrees within ``FUSED_TAIL_RTOL``; some cloud launch was batched; every
    decoupled cloud group launched exactly one decode kernel; and a re-plan
    fired.
-7. Prints a ``{"kernels": [...]}`` line, then, last,
+7. Serves full-width ResNet-50 through the three-tier server: three devices
+   (TX2, TK1, a mid edge) behind one shared edge server and one cloud,
+   built by ``build_three_tier_server`` from step 3's tables, the first
+   ``TRI_PER_DEVICE`` requests of each device of a two-link ``make_trace``
+   (``TRI_TRACE``), batch 4, with each codec pinned and then all three in
+   the tables, one request a ``serve`` call with the counters set to 0 just
+   before and read just after it. Fails unless every request has finite
+   logits; each breakdown's device, edge-server and cloud times are the
+   per-device ``TriPlanSpace.stage_times`` bitwise; bitpack's transfers on
+   both links are ``plan_sizes / bandwidth`` exactly; each request launched
+   its plan's kernels (the device's encode, a decode and an encode at the
+   edge server unless the plan relays, the cloud's decode); a relay was
+   served, and its blob equals the two-tier runner's edge step; the same
+   stream served on the CPU gives the same plans, breakdowns and timelines,
+   and logits within ``LOGITS_RTOL``. Then, for each codec, the pinned
+   two-cut plan ``TRI_PINNED`` through ``TriDecoupledRunner``: the kernels
+   of each tier's step, logits within ``LOGITS_RTOL`` of the full forward,
+   and each step's host-clock card time (median of 5).
+8. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -143,8 +161,22 @@ FLEET_TRACE = dict(n_devices=4, n_steps=24, seed=13, kind="flash_crowd",
 # is the same bits on both sides, so only float32 rounding in the tail
 # differs (~1e-6 relative per layer), far inside this share of the scale.
 FUSED_TAIL_RTOL = 1e-3
-# Table file of step 3's calibration, reloaded by build_fleet_server.
+# Table file of step 3's calibration, reloaded by build_fleet_server and
+# build_three_tier_server.
 TABLES_DIR = ROOT / "build" / "chip_smoke_tables"
+# Three-tier (step 7): the edge profiles of the reference's three-tier
+# serving test behind one edge server, a two-link trace whose fast uplinks
+# and congested backhauls make the TK1 device pick a genuine second cut,
+# the first TRI_PER_DEVICE requests of each device; and the pinned
+# two-cut plan run for each codec (cuts and bits on both links).
+TRI_TRACE = dict(n_devices=3, n_steps=16, seed=21, link2=True,
+                 mean_bps=10e6, mean2_bps=2e6)
+TRI_PER_DEVICE = 2
+TRI_PINNED = ("stem_pool", "res3_6", 8)
+ENCODE_KERNEL = {"huffman": "huffman_pack", "bitpack": "fused_encode",
+                 "perchannel": "pc_encode"}
+DECODE_KERNEL = {"huffman": "fused_decode", "bitpack": "fused_decode",
+                 "perchannel": "pc_decode"}
 
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
@@ -1210,6 +1242,289 @@ def serve_fleet(torch, results, base_params):
     return counts
 
 
+def tri_step_launches(plan) -> list:
+    """The kernel launches of each tier's step of one three-tier request
+    under ``plan``: the device's encode; at the edge server a decode and an
+    encode, or nothing for a relay; the cloud's decode. None at all for
+    cloud-only (the cloud runs the full forward)."""
+    if plan.is_cloud_only:
+        return [{}, {}, {}]
+    middle = {}
+    if plan.point2 != plan.point:
+        middle = {DECODE_KERNEL[plan.codec]: 1, ENCODE_KERNEL[plan.codec2]: 1}
+    return [{ENCODE_KERNEL[plan.codec]: 1}, middle,
+            {DECODE_KERNEL[plan.codec2]: 1}]
+
+
+def tri_launches(plan) -> dict:
+    """The kernel launches of one three-tier request, all steps."""
+    from collections import Counter
+
+    total = Counter()
+    for step in tri_step_launches(plan):
+        total.update(step)
+    return dict(total)
+
+
+def launched(counts) -> dict:
+    """Counts that moved, the Huffman host route (a deep code tree) taken
+    as the encode it replaces."""
+    got = {k: v for k, v in counts.items() if v}
+    if "huffman_host_route" in got:
+        got["huffman_pack"] = (got.get("huffman_pack", 0)
+                               + got.pop("huffman_host_route"))
+    return got
+
+
+def tri_stage_ms(torch, runner, batch, reps: int = 5):
+    """Host-clock median of each tier's step of one three-tier request,
+    each ended by a synchronize, and of the three together."""
+    from repro_torch.models.api import batch_to
+
+    tb = batch_to(batch, runner.device)
+    acc = {k: [] for k in ("device", "edge_server", "cloud", "request")}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        acc[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps + 1):
+        blob, extras = timed("device", lambda: runner.device_step(tb))
+        blob2, extras = timed("edge_server", lambda: runner.edge_server_step(
+            blob, extras))
+        timed("cloud", lambda: runner.cloud_step(blob2, extras))
+        acc["request"].append(acc["device"][-1] + acc["edge_server"][-1]
+                              + acc["cloud"][-1])
+    return {k: statistics.median(v[1:]) for k, v in acc.items()}
+
+
+def replace_device(tri, profile):
+    """The scalar three-tier space of one device: its own first tier over
+    the shared pair grid (the reference test's per-device view)."""
+    import dataclasses
+
+    from repro_torch.core.planner import _readonly
+
+    dev_vec = _readonly(profile.w * tri.cum_fmacs / profile.flops)
+    return dataclasses.replace(tri, device=profile, dev_vec=dev_vec,
+                               mid_vec=None).finalize()
+
+
+def serve_three_tier(torch, results, base_params):
+    """Step 7: full-width ResNet-50 through the three-tier server."""
+    import dataclasses
+
+    from repro_torch.config import JaladConfig, get_config
+    from repro_torch.config.types import EDGE_TK1, EDGE_TX2, DeviceProfile
+    from repro_torch.core.decoupler import (
+        DecoupledPlan,
+        DecoupledRunner,
+        TriDecoupledRunner,
+    )
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.models.api import batch_to
+    from repro_torch.models.bridge import params_to
+    from repro_torch.serving import (
+        ThreeTierServer,
+        build_three_tier_server,
+        make_trace,
+    )
+
+    card = card_line()
+    profiles = [EDGE_TX2, EDGE_TK1, DeviceProfile("edge-mid", 1e12, 1.30)]
+    cfg = get_config("resnet50")
+    t0 = time.perf_counter()
+    server0, params = build_three_tier_server(
+        cfg, JaladConfig(codec_choices=CODECS), profiles, calib_batches=1,
+        calib_batch_size=4, device="cuda", tables_cache_dir=str(TABLES_DIR))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(
+        _leaves(params), _leaves(base_params))),
+        "three-tier weights differ from the served path's")
+    cpu_params = params_to(params, "cpu")
+    base = server0.engine
+    model = base.model
+    names = model.decoupling_points()
+    trace = make_trace(**TRI_TRACE)
+    seen = {}
+    picked = []
+    for r in trace.requests():
+        if seen.get(r.device_id, 0) < TRI_PER_DEVICE:
+            seen[r.device_id] = seen.get(r.device_id, 0) + 1
+            picked.append(r)
+    batches = dict(zip((r.uid for r in picked), ImageStream(
+        cfg.num_classes, 4, cfg.image_size, seed=700).batches(len(picked))))
+    print(f"three-tier: {len(profiles)} devices behind one edge server "
+          f"({base.cfg.edge_server.name}), {len(picked)} requests of a "
+          f"{trace.n_requests}-request two-link trace; "
+          f"build_three_tier_server {build_s:.1f} s (tables reloaded) "
+          f"[{card}]")
+
+    def stream():
+        return [dataclasses.replace(r, batch=batches[r.uid]) for r in picked]
+
+    def name(p):
+        return names[p] if p >= 0 else "cloud"
+
+    def key(plan):
+        return (plan.point, plan.bits, plan.codec, plan.point2, plan.bits2,
+                plan.codec2, plan.predicted_latency, plan.predicted_acc_drop)
+
+    report = {}
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    runs = [(c, ThreeTierServer(pinned_engine(base, c), params, profiles))
+            for c in CODECS]
+    runs.append(("all", server0))
+    two_cut_served = relay_served = 0
+    for label, srv in runs:
+        tri = srv.fleet_space.tri
+        views = [replace_device(tri, p) for p in profiles]
+        done, per_request = [], []
+        wall = 0.0
+        # One request a serve() call: the counters are set to 0 just
+        # before it and read just after it.
+        for r in stream():
+            qops.reset_launch_counts()
+            t1 = time.perf_counter()
+            done += srv.serve([r])
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t1
+            got = qops.launch_counts()
+            for k, v in got.items():
+                counts[k] += v
+            want = tri_launches(r.plan)
+            check(launched(got) == want,
+                  f"three-tier {label} request {r.uid} "
+                  f"({name(r.plan.point)}>{name(r.plan.point2)}): launches "
+                  f"{launched(got)}, expected {want}")
+            per_request.append(launched(got))
+        check(len(done) == len(picked),
+              f"three-tier {label}: {len(done)} of {len(picked)} done")
+        for r in done:
+            bd = r.breakdown
+            check(tuple(r.logits.shape) == (4, cfg.num_classes)
+                  and bool(torch.isfinite(r.logits).all()),
+                  f"three-tier {label} request {r.uid} logits")
+            check((bd.edge_s, bd.edge_server_s, bd.cloud_s)
+                  == views[r.device_id].stage_times(r.plan),
+                  f"three-tier {label} request {r.uid}: stage times are "
+                  "not the planner's")
+            if label == "bitpack":
+                s1, s2 = tri.plan_sizes(r.plan)
+                check(bd.bytes_sent == int(s1) and bd.bytes_sent2 == int(s2)
+                      and bd.transfer_s == s1 / r.bandwidth
+                      and bd.transfer2_s == s2 / r.bandwidth2,
+                      f"three-tier bitpack request {r.uid}: transfers are "
+                      "not plan_sizes / bandwidth")
+        two_cut = [r for r in done if r.plan.point2 > r.plan.point]
+        relays = [r for r in done if not r.plan.is_cloud_only
+                  and r.plan.point2 == r.plan.point]
+        two_cut_served += len(two_cut)
+        relay_served += len(relays)
+        # A relay's blob is the two-tier runner's edge-step blob.
+        for r in relays[:1]:
+            p = r.plan
+            tri_run = TriDecoupledRunner(model, params, p)
+            blob, _ = tri_run.device_step(batches[r.uid])
+            blob2, _ = tri_run.edge_server_step(blob)
+            two, _ = DecoupledRunner(model, params, DecoupledPlan(
+                p.point, p.bits, 0.0, 0.0, 0.0, p.codec)).edge_step(
+                    batches[r.uid])
+            check(blob2 is blob and blob.payload == two.payload
+                  and blob.x_min.tobytes() == two.x_min.tobytes()
+                  and blob.x_max.tobytes() == two.x_max.tobytes()
+                  and r.breakdown.bytes_sent == r.breakdown.bytes_sent2
+                  == two.nbytes,
+                  f"three-tier {label} relay {r.uid}: blob differs from the "
+                  "two-tier edge step")
+        # The same stream on the CPU: same plans, breakdowns, timelines.
+        cpu = ThreeTierServer(srv.engine, cpu_params, profiles)
+        cpu_done = []
+        for r in stream():
+            cpu_done += cpu.serve([r])
+        worst = 0.0
+        for r, c in zip(done, cpu_done):
+            check(r.uid == c.uid and key(r.plan) == key(c.plan)
+                  and r.breakdown == c.breakdown
+                  and srv.timeline_for(r.uid) == cpu.timeline_for(c.uid),
+                  f"three-tier {label} request {r.uid}: the CPU run differs")
+            scale = float(c.logits.abs().max())
+            diff = float((r.logits.cpu() - c.logits).abs().max())
+            worst = max(worst, diff / max(scale, 1e-30))
+        check(worst <= LOGITS_RTOL,
+              f"three-tier {label}: card vs CPU logits {worst:.3e} of scale")
+        plans = sorted({(name(r.plan.point), name(r.plan.point2),
+                         r.plan.bits, r.plan.bits2, r.breakdown.plan_codec)
+                        for r in done})
+        print(f"  three-tier {label:10s} {len(done)} requests: makespan "
+              f"{srv.makespan_s * 1e3:.2f} ms vs synchronous "
+              f"{srv.synchronous_time_s() * 1e3:.2f} ms (modeled), wall "
+              f"{wall * 1e3:.1f} ms; {len(two_cut)} two-cut, {len(relays)} "
+              f"relay; card vs CPU logits within {worst:.2e}; plans {plans} "
+              f"[{card}]")
+        report[label] = dict(
+            requests=len(done), makespan_s=srv.makespan_s,
+            synchronous_s=srv.synchronous_time_s(), wall_s=wall,
+            two_cut=len(two_cut), relay=len(relays), plans=plans,
+            cpu_rel_err=worst, launches=per_request)
+    check(relay_served > 0, "three-tier: no relay plan served")
+    # The pinned two-cut plan through TriDecoupledRunner, for each codec:
+    # per-step launches, logits against the full forward, card times.
+    p1, p2 = names.index(TRI_PINNED[0]), names.index(TRI_PINNED[1])
+    bits = TRI_PINNED[2]
+    batch = batches[picked[0].uid]
+    with torch.no_grad():
+        full = model.forward(params, batch_to(batch, "cuda"))
+    pinned = {}
+    for codec in CODECS:
+        plan = DecoupledPlan(p1, bits, 0.0, 0.0, 0.0, codec, point2=p2,
+                             bits2=bits, codec2=codec)
+        runner = TriDecoupledRunner(model, params, plan)
+        with qops.count_launches() as b1:
+            blob, _ = runner.device_step(batch)
+        with qops.count_launches() as b2:
+            blob2, _ = runner.edge_server_step(blob)
+        with qops.count_launches() as b3:
+            logits = runner.cloud_step(blob2)
+        steps = [launched(b.counts) for b in (b1, b2, b3)]
+        check(steps == tri_step_launches(plan),
+              f"three-tier pinned {codec}: launches a step {steps}, "
+              f"expected {tri_step_launches(plan)}")
+        scale = float(full.abs().max())
+        rel = float((logits - full).abs().max()) / max(scale, 1e-30)
+        check(bool(torch.isfinite(logits).all()) and rel <= LOGITS_RTOL,
+              f"three-tier pinned {codec}: logits off the full forward by "
+              f"{rel:.3e} of the scale")
+        ms = tri_stage_ms(torch, runner, batch)
+        modeled = base.tri_space.stage_times(plan)
+        pinned[codec] = dict(plan=[TRI_PINNED[0], TRI_PINNED[1], bits],
+                             bytes=[blob.nbytes, blob2.nbytes],
+                             launches=steps, full_forward_rel_err=rel,
+                             card_ms=ms, modeled_s=list(modeled))
+        print(f"  three-tier pinned {codec:10s} {TRI_PINNED[0]}>"
+              f"{TRI_PINNED[1]} {bits} bits: bytes {blob.nbytes} + "
+              f"{blob2.nbytes}, logits within {rel:.2e} of the full forward;"
+              f" card device {ms['device']:.3f} ms, edge server "
+              f"{ms['edge_server']:.3f} ms, cloud {ms['cloud']:.3f} ms, "
+              f"request {ms['request']:.3f} ms (host clock, median of 5) "
+              f"[{card}]")
+    print(f"three-tier launches: {counts}; two-cut plans served: "
+          f"{two_cut_served} [{card}]")
+    for kname in KERNELS:
+        check(counts[kname] > 0, f"{kname} never launched on three tiers")
+    results["three_tier"] = dict(
+        card=card, launches=counts, build_s=build_s, trace=TRI_TRACE,
+        per_device=TRI_PER_DEVICE, two_cut_served=two_cut_served,
+        relay_served=relay_served, runs=report, pinned=pinned)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [v for k in sorted(tree) for v in _leaves(tree[k])]
@@ -1275,8 +1590,9 @@ def main(argv=None) -> int:
                                check_threelaunch_kernels, base, params)
     rows += k6_rows
     fleet = step("fleet", serve_fleet, params)
+    three = step("three-tier", serve_three_tier, params)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
-             "threelaunch": k6_path}
+             "threelaunch": k6_path, "three_tier": three}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

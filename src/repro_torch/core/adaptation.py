@@ -16,6 +16,9 @@ Two implementations of the same state machine live here:
   FleetPlanSpace`, which replaces the per-device controller loop inside
   the fleet server. It makes the same plan / switch sequence as D
   independent scalar controllers, event for event.
+
+:class:`TriFleetAdaptationController` is the fleet form over the
+three-tier two-cut index (one EWMA a link), for the three-tier server.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import numpy as np
 
 from repro_torch.core.decoupler import DecoupledPlan, JaladEngine
 from repro_torch.core.planner import FleetPlanSpace
+from repro_torch.core.tri_planner import TriFleetPlanSpace
 
 
 @dataclass
@@ -372,3 +376,218 @@ class FleetAdaptationController:
         ``max_history`` has evicted old rounds."""
         return self._evicted_switches + sum(
             int((rec.old_j != NO_PLAN).sum()) for rec in self.history)
+
+
+# ---------------------------------------------------------------------------
+# Three-tier fleet adaptation: two links, one fused two-cut re-plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TriFleetAdaptationRecord:
+    """One committing round of the three-tier fleet controller. Shaped
+    like :class:`FleetAdaptationRecord` with one bandwidth column per
+    link; ``old_c``/``new_c`` index the fleet's kept-cell table
+    (:class:`~repro_torch.core.tri_planner.TriFleetPlanSpace`), with the same
+    NO_PLAN / CLOUD_ONLY sentinels."""
+
+    devices: np.ndarray
+    steps: np.ndarray
+    bandwidths1: np.ndarray
+    bandwidths2: np.ndarray
+    old_c: np.ndarray
+    old_lat: np.ndarray
+    old_acc: np.ndarray
+    new_c: np.ndarray
+    new_lat: np.ndarray
+    new_acc: np.ndarray
+
+
+@dataclass
+class TriFleetAdaptationController:
+    """The fleet hysteresis state machine over the flattened two-cut
+    index: per-device EWMA estimates for BOTH links, current plan cells
+    on a :class:`~repro_torch.core.tri_planner.TriFleetPlanSpace`, and one
+    fused ``decide_all(BW1, BW2)`` per round. The commit rule is the
+    scalar controller's, verbatim: first decision commits; a changed
+    candidate commits only if it beats the held cell's objective at the
+    new bandwidths by ``switch_margin``. ``max_history`` bounds the
+    record list exactly like :class:`FleetAdaptationController`."""
+
+    fleet: TriFleetPlanSpace
+    switch_margin: float = 0.05
+    alpha: float = 0.3
+    default_bw1: float = 1e6
+    default_bw2: float = 20e6
+    history: List[TriFleetAdaptationRecord] = field(default_factory=list)
+    max_history: Optional[int] = None
+    bw1_est: np.ndarray = field(default=None, repr=False)
+    bw2_est: np.ndarray = field(default=None, repr=False)
+    plan_c: np.ndarray = field(default=None, repr=False)
+    plan_lat: np.ndarray = field(default=None, repr=False)
+    plan_acc: np.ndarray = field(default=None, repr=False)
+    steps: np.ndarray = field(default=None, repr=False)
+    _plan_cache: Dict[int, DecoupledPlan] = field(
+        default_factory=dict, repr=False)
+    _evicted_switches: int = 0
+
+    def __post_init__(self):
+        d = self.fleet.n_devices
+        self.bw1_est = np.full(d, np.nan)
+        self.bw2_est = np.full(d, np.nan)
+        self.plan_c = np.full(d, NO_PLAN, dtype=np.int64)
+        self.plan_lat = np.zeros(d)
+        self.plan_acc = np.zeros(d)
+        self.steps = np.zeros(d, dtype=np.int64)
+
+    @property
+    def n_devices(self) -> int:
+        return self.fleet.n_devices
+
+    # ------------------------------------------------------------ observe
+    def observe_transfers(self, nbytes, seconds, devices=None, *,
+                          link: int = 1) -> None:
+        """Per-link vectorized EWMA: ``link=1`` feeds the device →
+        edge-server estimate, ``link=2`` the edge-server → cloud one.
+        Invalid samples leave the estimate untouched."""
+        if link not in (1, 2):
+            raise ValueError(f"link must be 1 or 2, got {link}")
+        est = self.bw1_est if link == 1 else self.bw2_est
+        dv = (slice(None) if devices is None
+              else np.asarray(devices, dtype=np.int64))
+        nb = np.asarray(nbytes, dtype=np.float64)
+        sec = np.asarray(seconds, dtype=np.float64)
+        valid = (sec > 0.0) & (nb > 0.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sample = nb / sec
+        prev = est[dv]
+        ewma = self.alpha * sample + (1 - self.alpha) * prev
+        updated = np.where(np.isnan(prev), sample, ewma)
+        est[dv] = np.where(valid, updated, prev)
+
+    # ------------------------------------------------------------- decide
+    def current_plans(self, bandwidths1=None, bandwidths2=None,
+                      devices=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Advance the selected devices one step and return their active
+        ``(cell, predicted_objective)`` arrays."""
+        dv = (np.arange(self.n_devices, dtype=np.int64) if devices is None
+              else np.asarray(devices, dtype=np.int64))
+        self.steps[dv] += 1
+        if bandwidths1 is None:
+            est = self.bw1_est[dv]
+            b1 = np.where(np.isnan(est), self.default_bw1, est)
+        else:
+            b1 = np.asarray(bandwidths1, dtype=np.float64)
+        if bandwidths2 is None:
+            est = self.bw2_est[dv]
+            b2 = np.where(np.isnan(est), self.default_bw2, est)
+        else:
+            b2 = np.asarray(bandwidths2, dtype=np.float64)
+        decision = self.fleet.decide_all(b1, b2, dv)
+        cand_c, cand_lat = decision.cell, decision.cost
+        cand_acc = self._acc_of(cand_c)
+
+        cur_c = self.plan_c[dv]
+        fresh = cur_c == NO_PLAN
+        changed = ~fresh & (cand_c != cur_c)
+        commit = fresh.copy()
+        if changed.any():
+            old_cost = self.fleet.plan_cost_all(
+                cur_c[changed], b1[changed], b2[changed], dv[changed])
+            beats = (cand_lat[changed]
+                     < old_cost * (1 - self.switch_margin))
+            commit[changed] = beats
+        if commit.any():
+            self._commit(dv, b1, b2, cand_c, cand_lat, cand_acc, commit)
+        return self.plan_c[dv], self.plan_lat[dv]
+
+    def _acc_of(self, cell: np.ndarray) -> np.ndarray:
+        co = cell < 0
+        if self.fleet.n_cells == 0:      # all-infeasible: only cloud-only
+            return np.zeros(cell.shape[0])
+        safe = np.where(co, 0, cell)
+        return np.where(co, 0.0, self.fleet.accA[safe])
+
+    def _commit(self, dv, b1, b2, cand_c, cand_lat, cand_acc,
+                mask) -> None:
+        idx = dv[mask]
+        self.history.append(TriFleetAdaptationRecord(
+            devices=idx,
+            steps=self.steps[idx].copy(),
+            bandwidths1=b1[mask].copy(),
+            bandwidths2=b2[mask].copy(),
+            old_c=self.plan_c[idx].copy(),
+            old_lat=self.plan_lat[idx].copy(),
+            old_acc=self.plan_acc[idx].copy(),
+            new_c=cand_c[mask].copy(),
+            new_lat=cand_lat[mask].copy(),
+            new_acc=cand_acc[mask].copy(),
+        ))
+        if self.max_history is not None and \
+                len(self.history) > self.max_history:
+            evict = len(self.history) - self.max_history
+            for rec in self.history[:evict]:
+                self._evicted_switches += int((rec.old_c != NO_PLAN).sum())
+            del self.history[:evict]
+        self.plan_c[idx] = cand_c[mask]
+        self.plan_lat[idx] = cand_lat[mask]
+        self.plan_acc[idx] = cand_acc[mask]
+        if len(idx) >= len(self._plan_cache):
+            self._plan_cache.clear()
+        else:
+            for d in idx:
+                self._plan_cache.pop(int(d), None)
+
+    # -------------------------------------------------------------- views
+    def _materialize(self, c: int, lat: float, acc: float) -> DecoupledPlan:
+        fl = self.fleet
+        if c < 0:
+            return DecoupledPlan(-1, 0, lat, 0.0, 0.0)
+        tri = fl.tri
+        bits1, codec1 = tri._choice(int(fl.j1A[c]))
+        bits2, codec2 = tri._choice(int(fl.j2A[c]))
+        return DecoupledPlan(
+            point=tri.point_rows[fl.i1A[c]], bits=bits1,
+            predicted_latency=lat, predicted_acc_drop=acc, solve_ms=0.0,
+            codec=codec1, point2=tri.point_rows[fl.i2A[c]], bits2=bits2,
+            codec2=codec2,
+        )
+
+    def plan_for(self, d: int) -> Optional[DecoupledPlan]:
+        c = int(self.plan_c[d])
+        if c == NO_PLAN:
+            return None
+        plan = self._plan_cache.get(d)
+        if plan is None:
+            plan = self._materialize(c, float(self.plan_lat[d]),
+                                     float(self.plan_acc[d]))
+            self._plan_cache[d] = plan
+        return plan
+
+    def history_for(self, d: int) -> List[AdaptationEvent]:
+        """One device's retained event sequence (bandwidth = link 1's;
+        the record keeps both columns)."""
+        events: List[AdaptationEvent] = []
+        for rec in self.history:
+            hits = np.nonzero(rec.devices == d)[0]
+            for k in hits:
+                old = None
+                if rec.old_c[k] != NO_PLAN:
+                    old = self._materialize(int(rec.old_c[k]),
+                                            float(rec.old_lat[k]),
+                                            float(rec.old_acc[k]))
+                events.append(AdaptationEvent(
+                    step=int(rec.steps[k]),
+                    bandwidth=float(rec.bandwidths1[k]),
+                    old_plan=old,
+                    new_plan=self._materialize(int(rec.new_c[k]),
+                                               float(rec.new_lat[k]),
+                                               float(rec.new_acc[k])),
+                ))
+        return events
+
+    def switch_count(self) -> int:
+        """Committed re-decouplings across the fleet, exact under
+        ``max_history`` eviction."""
+        return self._evicted_switches + sum(
+            int((rec.old_c != NO_PLAN).sum()) for rec in self.history)

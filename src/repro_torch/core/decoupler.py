@@ -3,7 +3,9 @@ boundary to c bits through a boundary codec, and run head (edge) / tail
 (cloud) as separate steps — plus the engine that glues predictor tables,
 latency model and planner into the paper's decision procedure.
 
-The three-tier and token-streaming parts of the reference are not ported
+The three-tier split (device -> edge server -> cloud) is here too:
+:class:`TriDecoupledRunner` and the engine's ``tri_space`` /
+``decide_tri``. The token-streaming parts of the reference are not ported
 yet.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.core.ilp import ILPProblem, solve
 from repro_torch.core.latency import LatencyModel
 from repro_torch.core.planner import PlanSpace
 from repro_torch.core.predictor import PredictorTables
+from repro_torch.core.tri_planner import TriPlanSpace
 from repro_torch.device import tensor_device
 from repro_torch.models.api import Model, batch_to
 from repro_torch.models.init import torch_dtype
@@ -30,7 +33,14 @@ from repro_torch.models.init import torch_dtype
 @dataclass
 class DecoupledPlan:
     """One decision: where to cut, at what bit width, through which codec
-    (``point < 0``: no cut, everything on the cloud)."""
+    (``point < 0``: no cut, everything on the cloud).
+
+    A three-tier decision fills the second cut: the device runs ``[0,
+    point]``, an edge server ``(point, point2]`` and the cloud the rest,
+    with the second boundary at ``bits2`` through ``codec2``. Two-tier
+    plans keep the defaults (``point2 = -1``). ``point2 == point`` relays
+    the device's blob through the edge server unchanged; the planner emits
+    such cells only with ``bits2 == bits`` and ``codec2 == codec``."""
 
     point: int
     bits: int
@@ -38,10 +48,17 @@ class DecoupledPlan:
     predicted_acc_drop: float
     solve_ms: float
     codec: str = "huffman"
+    point2: int = -1
+    bits2: int = 0
+    codec2: str = ""
 
     @property
     def is_cloud_only(self) -> bool:
         return self.point < 0
+
+    @property
+    def has_second_cut(self) -> bool:
+        return self.point2 >= 0
 
 
 @dataclass
@@ -137,6 +154,76 @@ class DecoupledRunner:
 
 
 @dataclass
+class TriDecoupledRunner:
+    """Executable three-way split (device -> edge server -> cloud) of a
+    plan with a second cut, on the parameters' device. ``device_step``
+    runs ``[0, point]`` and encodes the first boundary;
+    ``edge_server_step`` decodes it, runs ``(point, point2]`` and encodes
+    the second; ``cloud_step`` finishes from ``point2``. A relay plan
+    (``point2 == point``) passes the device's blob on unchanged: no
+    decode, no encode, no kernel launch at the edge server."""
+
+    model: Model
+    params: Any
+    plan: DecoupledPlan
+
+    def __post_init__(self):
+        from repro_torch.codec import get_codec
+
+        if not self.plan.has_second_cut:
+            raise ValueError("TriDecoupledRunner needs a plan with a second "
+                             "cut (point2 >= 0); use DecoupledRunner for "
+                             "two-tier plans")
+        if self.plan.point2 < self.plan.point:
+            raise ValueError(f"cuts must be ordered, got "
+                             f"({self.plan.point}, {self.plan.point2})")
+        self._codec1: "BoundaryCodec" = get_codec(self.plan.codec)
+        self._codec2: "BoundaryCodec" = get_codec(self.plan.codec2)
+        self.device = tensor_device(self.params)
+        self._dtype = torch_dtype(self.model.cfg.dtype)
+
+    @property
+    def is_relay(self) -> bool:
+        return self.plan.point2 == self.plan.point
+
+    @torch.no_grad()
+    def device_step(self, batch) -> Tuple["WireBlob", Any]:
+        boundary = self.model.run_head(self.params,
+                                       batch_to(batch, self.device),
+                                       self.plan.point)
+        return self._codec1.encode(boundary, self.plan.bits), None
+
+    @torch.no_grad()
+    def edge_server_step(self, blob: "WireBlob",
+                         extras=None) -> Tuple["WireBlob", Any]:
+        """Middle tier: first-link blob in, second-link blob out."""
+        from repro_torch.codec import get_codec
+
+        if self.is_relay:
+            return blob, extras
+        boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
+                                                device=self.device)
+        boundary2 = self.model.run_segment(self.params, boundary,
+                                           self.plan.point, self.plan.point2)
+        return self._codec2.encode(boundary2, self.plan.bits2), extras
+
+    @torch.no_grad()
+    def cloud_step(self, blob: "WireBlob", extras=None) -> torch.Tensor:
+        from repro_torch.codec import get_codec
+
+        boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
+                                                device=self.device)
+        return self.model.run_tail(self.params, boundary, self.plan.point2)
+
+    def run(self, batch):
+        """Full three-hop inference; returns ``(logits, link1_bytes,
+        link2_bytes)``."""
+        blob1, extras = self.device_step(batch)
+        blob2, extras = self.edge_server_step(blob1, extras)
+        return self.cloud_step(blob2, extras), blob1.nbytes, blob2.nbytes
+
+
+@dataclass
 class JaladEngine:
     """Predictor tables + latency model; answers "where do we cut right
     now?" for the current bandwidth (paper Sec. III-E) through one cached
@@ -149,6 +236,8 @@ class JaladEngine:
     point_indices: Optional[List[int]] = None   # tables row -> model point
     _plan_space: Optional[PlanSpace] = field(
         default=None, repr=False, compare=False)
+    _tri_space: Optional[TriPlanSpace] = field(
+        default=None, repr=False, compare=False)
 
     @property
     def plan_space(self) -> PlanSpace:
@@ -158,6 +247,36 @@ class JaladEngine:
                 self.point_indices,
             )
         return self._plan_space
+
+    @property
+    def tri_space(self) -> TriPlanSpace:
+        """The three-tier (device -> edge server -> cloud) space over the
+        same tables and latency model, with the config's edge server and
+        power model. Its ``degenerate()`` view at ``BW1 = inf`` decides as
+        :attr:`plan_space` does, bit for bit."""
+        if self._tri_space is None:
+            self._tri_space = TriPlanSpace.build(
+                self.tables, self.latency, self.cfg.accuracy_drop_budget,
+                edge_server=self.cfg.edge_server,
+                power=self.cfg.power,
+                energy_weight=self.cfg.energy_weight,
+                point_indices=self.point_indices,
+            )
+        return self._tri_space
+
+    def decide_tri(self, bandwidth1: Optional[float] = None,
+                   bandwidth2: Optional[float] = None,
+                   energy_budget: Optional[float] = None) -> DecoupledPlan:
+        """Three-tier decision at the two link bandwidths (defaults from
+        the config), under the config's energy budget unless one is
+        given."""
+        bw1 = bandwidth1 if bandwidth1 is not None else \
+            self.cfg.bandwidth_bytes_per_s
+        bw2 = bandwidth2 if bandwidth2 is not None else \
+            self.cfg.bandwidth2_bytes_per_s
+        budget = energy_budget if energy_budget is not None else \
+            self.cfg.energy_budget_j
+        return self.tri_space.decide(bw1, bw2, energy_budget=budget)
 
     def ilp_problem(self, bandwidth: float) -> ILPProblem:
         return self.plan_space.ilp_problem(bandwidth)
@@ -185,7 +304,12 @@ class JaladEngine:
                            self.latency.cloud, self.latency.input_bytes)
         return dataclasses.replace(
             self, latency=lat,
-            _plan_space=self.plan_space.with_edge(edge_profile))
+            _plan_space=self.plan_space.with_edge(edge_profile),
+            _tri_space=None)
 
     def make_runner(self, params, plan: DecoupledPlan) -> DecoupledRunner:
         return DecoupledRunner(self.model, params, plan)
+
+    def make_tri_runner(self, params,
+                        plan: DecoupledPlan) -> TriDecoupledRunner:
+        return TriDecoupledRunner(self.model, params, plan)

@@ -23,7 +23,8 @@ cloud vector are device-independent, so :class:`FleetPlanSpace` stacks D
 heterogeneous edge devices over one shared ``PlanSpace``, and its
 ``decide_all(bandwidths)`` re-plans the whole fleet in one fused op,
 bitwise-equal to D independent ``with_edge(p).decide(bw)`` calls. The
-streaming and three-tier extensions are not ported yet.
+three-tier extension is :mod:`repro_torch.core.tri_planner`; the streaming
+one is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Public model API of the port: ``build_model(cfg)`` returns a
 :class:`Model` with the reference's decoupling surface (``forward``,
-``decoupling_points``, ``run_head``, ``run_heads``, ``run_tail``,
-``per_point_fmacs``, ``boundary_bytes``) for the paper's CNN testbed.
+``decoupling_points``, ``run_head``, ``run_heads``, ``run_segment``,
+``run_tail``, ``per_point_fmacs``, ``boundary_bytes``) for the paper's CNN
+testbed.
 
 Parameters are nested dicts of tensors keyed like the reference's trees.
 Batches are dicts whose ``"images"`` entry is a (B, 3, H, W) float tensor
@@ -80,6 +81,21 @@ class Model:
                  extras: Optional[Any] = None) -> torch.Tensor:
         return cnn_lib.cnn_forward(self.layers, params, boundary,
                                    start=point + 1)
+
+    def run_segment(self, params, boundary, from_point: int, to_point: int,
+                    extras: Optional[Any] = None) -> torch.Tensor:
+        """The middle tier of a three-way split: layers ``(from_point,
+        to_point]`` on the boundary of ``run_head(..., from_point)``, so
+        ``run_tail(run_segment(run_head(x, i1), i1, i2), i2)`` is the full
+        forward. ``from_point == to_point`` (a relay) returns ``boundary``
+        itself."""
+        if to_point < from_point:
+            raise ValueError(f"segment requires from_point <= to_point, got "
+                             f"({from_point}, {to_point})")
+        if to_point == from_point:
+            return boundary
+        return cnn_lib.cnn_forward(self.layers, params, boundary,
+                                   start=from_point + 1, upto=to_point + 1)
 
     # --------------------------------------------------- latency model IO
     def per_point_fmacs(self, batch: int, seq_len: int = 0) -> List[float]:

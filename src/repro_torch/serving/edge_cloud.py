@@ -42,10 +42,21 @@ class LatencyBreakdown:
     plan_point: int
     plan_bits: int
     plan_codec: str = ""
+    # --- three-tier extension (zeros for two-tier breakdowns, so their
+    # ``total_s`` is untouched): middle-tier compute + second link ---
+    edge_server_s: float = 0.0
+    transfer2_s: float = 0.0
+    bytes_sent2: int = 0
+    plan_point2: int = -1
+    plan_bits2: int = 0
+    plan_codec2: str = ""
 
     @property
     def total_s(self) -> float:
-        return self.edge_s + self.transfer_s + self.cloud_s
+        # The reference's order: with the two middle terms 0.0, a two-tier
+        # total keeps the bits of edge + transfer + cloud.
+        return (self.edge_s + self.transfer_s + self.edge_server_s
+                + self.transfer2_s + self.cloud_s)
 
 
 @dataclass

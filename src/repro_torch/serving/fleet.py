@@ -141,6 +141,23 @@ class FleetRequest:
     _extras: Any = None
 
 
+def request_waves(reqs: List[FleetRequest]) -> List[List[FleetRequest]]:
+    """Wave k holds the k-th request of every device, in stream order.
+    Decisions and clocks only couple *within* a device, so advancing one
+    wave at a time with a fleet-wide fused decide is equivalent to the
+    per-request loop — and each wave touches any device at most once,
+    making the array scatter updates safe."""
+    seq: Dict[int, int] = {}
+    waves: List[List[FleetRequest]] = []
+    for r in reqs:
+        k = seq.get(r.device_id, 0)
+        seq[r.device_id] = k + 1
+        if k == len(waves):
+            waves.append([])
+        waves[k].append(r)
+    return waves
+
+
 @dataclass
 class CloudGroup:
     """One real batched cloud launch: which requests shared it."""
@@ -218,29 +235,13 @@ class FleetServer:
         return len(self.devices)
 
     # -------------------------------------------------------------- stages
-    def _waves(self, reqs: List[FleetRequest]) -> List[List[FleetRequest]]:
-        """Wave k holds the k-th request of every device, in stream
-        order. Decisions and clocks only couple *within* a device, so
-        advancing one wave at a time with a fleet-wide fused decide is
-        equivalent to the per-request loop — and each wave touches any
-        device at most once, making the array scatter updates safe."""
-        seq: Dict[int, int] = {}
-        waves: List[List[FleetRequest]] = []
-        for r in reqs:
-            k = seq.get(r.device_id, 0)
-            seq[r.device_id] = k + 1
-            if k == len(waves):
-                waves.append([])
-            waves[k].append(r)
-        return waves
-
     def _edge_and_link_phase(self, reqs: List[FleetRequest]) -> None:
         """Per-device FIFO edge compute + encode + link transfer, decided
         wave-by-wave through the vectorized controller. The per-device
         decision/observation sequence is exactly the synchronous
         ``EdgeCloudServer.serve_batch`` sequence, so per-device plans
         (and therefore results) match serving each device alone."""
-        for wave in self._waves(reqs):
+        for wave in request_waves(reqs):
             m = len(wave)
             dv = np.fromiter((r.device_id for r in wave), np.int64, m)
             bws = np.fromiter((r.bandwidth for r in wave), np.float64, m)

@@ -31,7 +31,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout.split(" ", 1)
-    assert int(out[0]) >= 42          # every module of the port was imported
+    assert int(out[0]) >= 44          # every module of the port was imported
     assert out[1].strip() == "[]"
 
 
@@ -44,6 +44,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.config.types import EDGE_TX2
     from repro_torch.serving.edge_cloud import build_edge_cloud_server
     from repro_torch.serving.fleet import build_fleet_server
+    from repro_torch.serving.three_tier import build_three_tier_server
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("resnet50").reduced()
@@ -58,6 +59,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
                                         calib_batch_size=1),
         lambda: build_fleet_server(cfg, JaladConfig(), [EDGE_TX2],
                                    calib_batches=1, calib_batch_size=1),
+        lambda: build_three_tier_server(cfg, JaladConfig(), [EDGE_TX2],
+                                        calib_batches=1, calib_batch_size=1),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
