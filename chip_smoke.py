@@ -88,7 +88,32 @@ NVIDIA card.
    two-cut plan ``TRI_PINNED`` through ``TriDecoupledRunner``: the kernels
    of each tier's step, logits within ``LOGITS_RTOL`` of the full forward,
    and each step's host-clock card time (median of 5).
-8. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+8. Serves full-width olmo-1b (bfloat16, random weights from seed 0; 16
+   layers, d_model 2048, vocab 50,304): (a) ``ServeSession``, batch 4,
+   prompt 32, 16 greedy tokens, with split (``prefill_head`` /
+   ``prefill_tail``, ``decode_head`` / ``decode_tail``) equal to unsplit
+   bit for bit at the first, a middle and the last point; (b) the
+   ``ContinuousBatchingEngine``, 6 staggered requests on 4 slots, each
+   request's tokens, greedy and sampled (``LM_TEMPERATURE``, a generator
+   a request), equal to a one-slot engine's, and one decode step of four
+   live rows at their own positions equal, logits bit for bit, to each
+   request decoded alone at the same row count; (c)
+   ``build_edge_cloud_server`` over the three codecs (calibration timed),
+   ``decide_streaming`` at two bandwidths, the stream kernels K1/K2, K3
+   and K4/K5 held byte for byte against their plain versions on real
+   boundary frames (k = 1..4 rows of (1, 1, 2048), one (1, 32, 2048)
+   prompt), and for each codec the pinned plan ``seg0_d7`` at 8 bits
+   serving the 6 requests (sampled) through ``stream_session``: the
+   counters set to 0 around every step show one encode and one decode
+   launch for the step's batched group plus one of each per request that
+   joins in it;
+   each request's tokens equal a one-slot session's; the same run, phase
+   by phase with a synchronize after each (head, encode, decode, tail,
+   join), gives the per-token card times, and ``torch.profiler`` over 5
+   steps the device kernels and busy share of a step. Then reduced
+   olmo-1b in float32, card against CPU: logits within ``LM_SMALL_RTOL``,
+   equal greedy tokens.
+9. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -178,6 +203,30 @@ ENCODE_KERNEL = {"huffman": "huffman_pack", "bitpack": "fused_encode",
 DECODE_KERNEL = {"huffman": "fused_decode", "bitpack": "fused_decode",
                  "perchannel": "pc_decode"}
 
+# LM serving (step 8): full-width olmo-1b in bfloat16, random weights from
+# seed 0. ServeSession: batch, prompt, greedy tokens; split against unsplit
+# at the first, a middle and the last point. The engine and the streams
+# serve LM_REQUESTS staggered requests (prompts of LM_PROMPTS tokens,
+# LM_NEW new ones, two arrivals a step) on LM_MAX_BATCH slots; the streams
+# pin LM_STREAM_POINT at LM_STREAM_BITS. decide_streaming is printed at
+# LM_BANDWIDTHS. The stream-shape kernel checks run at LM_KERNEL_BITS.
+LM_ARCH = "olmo-1b"
+LM_SESSION = (4, 32, 16)
+LM_SPLIT_POINTS = (0, 7, 15)
+LM_REQUESTS, LM_MAX_BATCH, LM_SEQ = 6, 4, 96
+LM_PROMPTS, LM_NEW = (8, 33), (4, 17)
+LM_STREAM_POINT, LM_STREAM_BITS = 7, 8
+LM_BANDWIDTHS = (1e5, 1e7)
+LM_KERNEL_BITS = (2, 4, 8)
+LM_PROFILE_STEPS = 5
+# The engine also samples, and the streams sample, at this temperature.
+# With random tied embeddings a token's own logit leads the others by tens
+# (about |e|^2 / std(e) ~ 40 from the init scales), so greedy decoding,
+# and sampling at 1, repeat one token; at 5 the tokens move.
+LM_TEMPERATURE = 5.0
+# Reduced olmo-1b in float32 (TF32 off), card against CPU: the matrix
+# products sum in other orders, ~1e-6 of the logits' scale.
+LM_SMALL_RTOL = 1e-5
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -1525,6 +1574,512 @@ def serve_three_tier(torch, results, base_params):
     return counts
 
 
+def lm_requests(vocab: int, n: int, seed: int):
+    """Step 8's staggered requests: (prompt, max_new_tokens, arrival)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, vocab, size=int(rng.integers(*LM_PROMPTS)))
+             .astype(np.int32), int(rng.integers(*LM_NEW)), i // 2)
+            for i in range(n)]
+
+
+def lm_run(engine, reqs, solo: bool = False,
+           temperature: float = 0.0) -> dict:
+    """Serve ``reqs`` through ``engine`` (arrivals dropped when ``solo``);
+    the tokens of each request by uid."""
+    from repro_torch.serving.scheduler import GenRequest
+
+    for i, (prompt, new, arrival) in reqs:
+        engine.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=new,
+                                 temperature=temperature,
+                                 arrival=0 if solo else arrival))
+    return {r.uid: r.result.tolist() for r in engine.run()}
+
+
+def lm_solo_equal(make, reqs, batched: dict, what: str,
+                  temperature: float = 0.0) -> None:
+    """Each request served alone by a one-slot ``make()`` gives the tokens
+    of the batched run."""
+    for i, req in reqs:
+        alone = lm_run(make(), [(i, req)], solo=True,
+                       temperature=temperature)
+        check(alone[i] == batched[i],
+              f"{what}: request {i} batched {batched[i]} != alone "
+              f"{alone[i]}")
+
+
+def check_rows_invariant(torch, model, params, reqs) -> int:
+    """One batched decode step of the engine's shape (``DECODE_ROWS``
+    rows, the first LM_MAX_BATCH live, each at its own position) against
+    each request decoded alone in row 0 of a decode of the same shape:
+    the logits must be equal bit for bit. Returns the rows compared."""
+    from repro_torch.serving.scheduler import DECODE_ROWS, copy_into_row
+
+    dev = torch.device("cuda")
+    rows = -(-LM_MAX_BATCH // DECODE_ROWS) * DECODE_ROWS
+
+    def zeros():
+        return (model.init_caches(rows, LM_SEQ, dev),
+                torch.zeros((rows, 1), dtype=torch.int64, device=dev),
+                torch.zeros(rows, dtype=torch.int64, device=dev),
+                torch.zeros(rows, dtype=torch.bool, device=dev))
+
+    caches, last, pos, live = zeros()
+    alone = []
+    with torch.no_grad():
+        for r, (_, (prompt, _, _)) in enumerate(reqs[:LM_MAX_BATCH]):
+            tokens = torch.as_tensor(prompt[None], dtype=torch.int64,
+                                     device=dev)
+            lg, one = model.prefill(params, {"tokens": tokens}, LM_SEQ)
+            solo = zeros()
+            for row, (c, t, p, lv) in ((r, (caches, last, pos, live)),
+                                       (0, solo)):
+                copy_into_row(c, one, row)
+                t[row, 0] = lg[0, -1].argmax()
+                p[row] = len(prompt)
+                lv[row] = True
+            alone.append(solo)
+        logits, _ = model.decode_step(params, last, pos, caches, live)
+        for r, (c, t, p, lv) in enumerate(alone):
+            lg, _ = model.decode_step(params, t, p, c, lv)
+            check(torch.equal(logits[r], lg[0]),
+                  f"decode row {r} of {rows} != the request alone")
+    return len(alone)
+
+
+def check_stream_kernels(torch, frames):
+    """K1/K2, K3 and K4/K5 on real boundary frames of the stream: stacks
+    of k = 1..4 rows of (1, 1, d) and one prompt frame (1, S, d), bf16,
+    at every width of LM_KERNEL_BITS: codes, words and ranges byte for
+    byte, decodes bit for bit (bf16 out, the cloud's dtype). Returns the
+    largest difference of each kernel and its time on the k = 4 stack."""
+    import numpy as np
+
+    from repro_torch.core.quantization import dequant_step
+    from repro_torch.kernels.entropy import ops as eops
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    worst = dict.fromkeys(KERNELS, 0.0)
+    times = {}
+    rows, prompt = frames
+    stacks = [rows[:k] for k in range(1, rows.shape[0] + 1)] + [prompt]
+    for x in stacks:
+        k, shape = x.shape[0], tuple(x.shape[1:])
+        xb = x.reshape(k, -1)
+        n = xb.shape[1]
+        label = f"{k}x{shape}"
+        for bits in LM_KERNEL_BITS:
+            packed = bits <= 4
+            codes, mn, mx = qops.fused_encode(xb, bits)
+            pc, pmn, pmx = qref.fused_encode_ref(xb, bits)
+            worst["fused_encode"] = max(worst["fused_encode"], float(
+                (codes.to(torch.int32) - pc.to(torch.int32)).abs().max()))
+            check(torch.equal(codes, pc) and same_bits(mn, pmn)
+                  and same_bits(mx, pmx), f"K1 stream {label} {bits}")
+            layouts = [(codes, packed)]
+            if packed:
+                q = torch.stack([codes & 15, codes >> 4], -1).reshape(k, -1)
+                layouts.append((q[:, :n].contiguous(), False))
+            step = dequant_step(mn, mx, bits)
+            for cc, pk in layouts:
+                got = qops.fused_decode(cc, mn, mx, bits, n, pk,
+                                        torch.bfloat16)
+                want = qref.fused_decode_ref(cc, mn, step, n, pk,
+                                             torch.bfloat16)
+                worst["fused_decode"] = max(worst["fused_decode"], float(
+                    (got.float() - want.float()).abs().max()))
+                check(torch.equal(got.view(torch.int16),
+                                  want.view(torch.int16)),
+                      f"K2 stream {label} {bits} packed={pk}")
+            hist, hmn, _, scale = eops._hist_ranges(xb, bits)
+            tables = [eops._sample_table(h, 1 << bits)
+                      for h in hist.cpu().numpy()]
+            check(all(t is not None for t in tables),
+                  f"K3 stream {label} {bits}: a table took the host route")
+            hargs = (xb, hmn, scale,
+                     torch.from_numpy(np.stack(
+                         [t[0] for t in tables]).view("int32")).cuda(),
+                     torch.from_numpy(np.stack(
+                         [t[1] for t in tables])).cuda(), bits,
+                     eops._w_words(max(t[3] for t in tables)))
+            words = eops.huffman_pack(*hargs)
+            pwords = eops.huffman_pack_ref(*hargs)
+            worst["huffman_pack"] = max(worst["huffman_pack"],
+                                        float((words != pwords).sum()))
+            check(torch.equal(words, pwords), f"K3 stream {label} {bits}")
+            axis = len(shape) - 1          # perchannel.channel_axis(3) == 2
+            pw, pmn2, pmx2 = qops.pc_encode(x, bits, axis)
+            rw, rmn, rmx = qref.pc_encode_ref(x, bits, axis)
+            worst["pc_encode"] = max(worst["pc_encode"],
+                                     float((pw != rw).sum()))
+            check(torch.equal(pw, rw) and same_bits(pmn2, rmn)
+                  and same_bits(pmx2, rmx), f"K4 stream {label} {bits}")
+            got = qops.pc_decode(pw, pmn2, pmx2, bits, shape, axis,
+                                 torch.bfloat16)
+            want = qref.pc_decode_ref(pw, pmn2, pmx2, bits, shape, axis,
+                                      torch.bfloat16)
+            worst["pc_decode"] = max(worst["pc_decode"], float(
+                (got.float() - want.float()).abs().max()))
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"K5 stream {label} {bits}")
+            if k == rows.shape[0] and shape == tuple(rows.shape[1:]) \
+                    and bits == 8:
+                times = {
+                    "shape": label,
+                    "fused_encode": device_ms(
+                        torch, lambda: qops.fused_encode(xb, bits), flush),
+                    "fused_decode": device_ms(
+                        torch, lambda: qops.fused_decode(
+                            codes, mn, mx, bits, n, False, torch.bfloat16),
+                        flush),
+                    "huffman_pack": device_ms(
+                        torch, lambda: eops.huffman_pack(*hargs), flush),
+                    "pc_encode": device_ms(
+                        torch, lambda: qops.pc_encode(x, bits, axis), flush),
+                    "pc_decode": device_ms(
+                        torch, lambda: qops.pc_decode(
+                            pw, pmn2, pmx2, bits, shape, axis,
+                            torch.bfloat16), flush)}
+    return worst, times
+
+
+def timed_stream_run(torch, sess, reqs, temperature: float) -> dict:
+    """The batched session's engine loop, phase by phase, with a
+    synchronize and a host-clock reading after each phase: per join
+    (prefill across the cut) and per step the head decode, the encode,
+    the decode and the tail (tail decode + token select). Returns the
+    tokens and the per-phase times."""
+    from repro_torch.serving.scheduler import GenRequest
+
+    for i, (prompt, new, arrival) in reqs:
+        sess.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=new,
+                               temperature=temperature, arrival=arrival))
+    phases = {"join": [], "head": [], "encode": [], "decode": [],
+              "tail": [], "frame_bytes": []}
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    with torch.no_grad():
+        while sess.queue or sess.num_active:
+            sess.step_count += 1
+            t0 = clock()
+            joins = len(sess.events)
+            sess._admit()
+            t1 = clock()
+            n_join = sum(1 for e in sess.events[joins:] if e[0] == "join")
+            if n_join:
+                phases["join"].append((t1 - t0) * 1e3 / n_join)
+            active = sess._active_slots()
+            if not active:
+                continue
+            rows, live = sess._head_phase(active)
+            t2 = clock()
+            blobs = sess._codec.encode_batch(rows, sess.plan.bits)
+            t3 = clock()
+            sess._account_encode(active, blobs)
+            xs = sess._codec.decode_batch(blobs, out_dtype=sess._cloud_dtype,
+                                          device=sess.device)
+            t4 = clock()
+            sess._finish_step(active, sess._tail_phase(active, live, xs))
+            t5 = clock()
+            for key, (a, b) in (("head", (t1, t2)), ("encode", (t2, t3)),
+                                ("decode", (t3, t4)), ("tail", (t4, t5))):
+                phases[key].append((b - a) * 1e3)
+            phases["frame_bytes"] += [b.stream_nbytes for b in blobs]
+    phases["tokens"] = {r.uid: r.result.tolist() for r in sess.completed}
+    return phases
+
+
+def profile_stream_steps(torch, sess, vocab: int) -> dict:
+    """Where a stream step's time goes: LM_MAX_BATCH long requests join,
+    two warm steps run, then ``torch.profiler`` traces LM_PROFILE_STEPS
+    steps. Returns the host-clock time a step, the device kernels a step
+    and their summed device time; busy share = device time / step time."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.scheduler import GenRequest
+
+    rng = np.random.default_rng(2)
+    for i in range(LM_MAX_BATCH):
+        sess.submit(GenRequest(uid=i, tokens=rng.integers(
+            1, vocab, size=16).astype(np.int32), max_new_tokens=32))
+    for _ in range(2):
+        sess.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            sess.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    step_ms = wall * 1e3 / LM_PROFILE_STEPS
+    return dict(step_ms=step_ms,
+                kernels_per_step=len(kernels) / LM_PROFILE_STEPS,
+                device_ms_per_step=busy_ms / LM_PROFILE_STEPS,
+                busy_share=busy_ms / LM_PROFILE_STEPS / step_ms)
+
+
+def serve_lm(torch, results):
+    """Step 8: full-width olmo-1b (bfloat16, random weights from seed 0)
+    through ServeSession, the continuous-batching engine and token
+    streaming across the JALAD cut with each codec."""
+    import numpy as np
+
+    from repro_torch.config import JaladConfig, ServeConfig, get_config
+    from repro_torch.core.decoupler import DecoupledPlan
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.models.api import batch_to, build_model
+    from repro_torch.models.bridge import params_to
+    from repro_torch.serving.edge_cloud import build_edge_cloud_server
+    from repro_torch.serving.engine import ServeSession
+    from repro_torch.serving.scheduler import (
+        ContinuousBatchingEngine,
+        GenRequest,
+    )
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    names = model.decoupling_points()
+    print(f"LM: {cfg.arch_id} ({model.param_count():,} parameters, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}); "
+          f"weights from seed 0 in {init_s:.1f} s")
+    out = dict(card=card_line(), arch=cfg.arch_id,
+               params=model.param_count(), init_s=init_s)
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # (a) ServeSession, and split against unsplit at three points.
+    b, s, new = LM_SESSION
+    sc = ServeConfig(max_batch=b, max_seq_len=s + new)
+    batch = make_batch(cfg, b, s, seed=0)
+    tb = batch_to(batch, dev)
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(3):
+            t1 = clock()
+            ref_logits, ref_caches = model.prefill(params, tb, s + new)
+            prefill_ms.append((clock() - t1) * 1e3)
+        check(tuple(ref_logits.shape) == (b, s, cfg.vocab_size)
+              and bool(torch.isfinite(ref_logits).all()),
+              "LM prefill logits")
+        nxt = ref_logits[:, -1].argmax(-1)[:, None]
+        ref_step, _ = model.decode_step(params, nxt, s, [
+            {k: v.clone() for k, v in c.items()} for c in ref_caches])
+        for point in LM_SPLIT_POINTS:
+            boundary, head = model.prefill_head(params, tb, s + new, point)
+            logits, tail = model.prefill_tail(params, boundary, s + new,
+                                              point)
+            check(torch.equal(logits, ref_logits),
+                  f"split prefill at {names[point]} != unsplit")
+            bnd, _ = model.decode_head(params, nxt, s, head, point, s + new)
+            step, _ = model.decode_tail(params, bnd, s, tail, point, s + new)
+            check(torch.equal(step, ref_step),
+                  f"split decode at {names[point]} != unsplit")
+    t1 = clock()
+    toks = ServeSession(model, params, sc).generate(batch, new)
+    gen_ms = (clock() - t1) * 1e3
+    check(toks.shape == (b, new), f"ServeSession tokens {toks.shape}")
+    session = dict(batch=b, prompt=s, tokens=new,
+                   prefill_ms=statistics.median(prefill_ms),
+                   generate_ms=gen_ms,
+                   per_token_ms=(gen_ms - statistics.median(prefill_ms))
+                   / (new - 1),
+                   split_points=[names[p] for p in LM_SPLIT_POINTS])
+    print(f"  (a) ServeSession batch {b}, prompt {s}, {new} greedy tokens "
+          f"in {gen_ms:.1f} ms (prefill {session['prefill_ms']:.2f} ms, "
+          f"{session['per_token_ms']:.2f} ms a decode step); split == "
+          f"unsplit bitwise at {session['split_points']}")
+
+    # (b) Continuous batching: batched against one-slot engines.
+    reqs = list(enumerate(lm_requests(cfg.vocab_size, LM_REQUESTS, seed=1)))
+    esc = ServeConfig(max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)
+    eng = ContinuousBatchingEngine(model, params, esc)
+    t1 = clock()
+    batched = lm_run(eng, reqs)
+    eng_ms = (clock() - t1) * 1e3
+    solo_engine = lambda: ContinuousBatchingEngine(  # noqa: E731
+        model, params, ServeConfig(max_batch=1, max_seq_len=LM_SEQ))
+    lm_solo_equal(solo_engine, reqs, batched, "engine")
+    # Random weights make greedy decoding repeat a token, so the same
+    # requests also sample (each from its own generator): a row that
+    # rounded differently batched would draw other tokens from then on.
+    sampled = lm_run(ContinuousBatchingEngine(model, params, esc), reqs,
+                     temperature=LM_TEMPERATURE)
+    lm_solo_equal(solo_engine, reqs, sampled, "engine, sampled",
+                  LM_TEMPERATURE)
+    n_rows = check_rows_invariant(torch, model, params, reqs)
+    n_tok = sum(len(v) for v in batched.values())
+    engine = dict(requests=len(reqs), max_batch=LM_MAX_BATCH,
+                  steps=eng.step_count, tokens=n_tok, wall_ms=eng_ms,
+                  tokens_per_s=n_tok / eng_ms * 1e3,
+                  distinct_tokens=[len(set(v)) for _, v in
+                                   sorted(batched.items())],
+                  distinct_sampled=[len(set(v)) for _, v in
+                                    sorted(sampled.items())])
+    print(f"  (b) engine: {len(reqs)} requests on {LM_MAX_BATCH} slots, "
+          f"{eng.step_count} steps, {n_tok} tokens in {eng_ms:.1f} ms "
+          f"({engine['tokens_per_s']:.1f} tokens/s; distinct tokens a "
+          f"request {engine['distinct_tokens']}, sampled at "
+          f"T={LM_TEMPERATURE} {engine['distinct_sampled']}); each "
+          f"request's tokens, greedy and sampled, == a one-slot engine's; "
+          f"decode logits of {n_rows} live rows == each alone, bitwise")
+
+    # (c) Streaming across the cut.
+    jc = JaladConfig(codec_choices=CODECS)
+    t1 = clock()
+    server, _ = build_edge_cloud_server(
+        cfg, jc, calib_batches=1, calib_batch_size=2, seq_len=s,
+        params=params)
+    calib_s = clock() - t1
+    print(f"  (c) build_edge_cloud_server: calibration over "
+          f"{len(names)} points x {len(jc.bits_choices)} widths x "
+          f"{len(CODECS)} codecs, batch 2 x {s} tokens, in {calib_s:.1f} s")
+    decisions = {}
+    for bw in LM_BANDWIDTHS:
+        p = server.engine.decide_streaming(bw, expected_tokens=128.0)
+        decisions[bw] = _plan(p)
+        where = names[p.point] if p.point >= 0 else "cloud"
+        print(f"  (c) decide_streaming at {bw:.0e} B/s, 128 tokens: "
+              f"{where} {p.bits} bits {p.codec or '-'} (predicted "
+              f"{p.predicted_latency:.4f} s)")
+    with torch.no_grad():
+        prompt_b, _ = model.prefill_head(
+            params, batch_to({"tokens": batch["tokens"][:1]}, dev), s,
+            LM_STREAM_POINT)
+    frames = (prompt_b[0, :LM_MAX_BATCH].reshape(LM_MAX_BATCH, 1, 1, -1),
+              prompt_b)
+    worst, kernel_ms = check_stream_kernels(torch, frames)
+    print(f"  stream-shape kernels == plain versions (max diff {worst}); "
+          f"8-bit times on {kernel_ms['shape']}: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in kernel_ms.items()
+              if k != "shape"))
+    ssc = ServeConfig(max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)
+    enc_of = {"bitpack": "fused_encode", "huffman": "huffman_pack",
+              "perchannel": "pc_encode"}
+    dec_of = {"bitpack": "fused_decode", "huffman": "fused_decode",
+              "perchannel": "pc_decode"}
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    streams = {}
+    for codec in CODECS:
+        plan = DecoupledPlan(LM_STREAM_POINT, LM_STREAM_BITS, 0.0, 0.0, 0.0,
+                             codec)
+        runner = server.engine.make_runner(params, plan)
+        sess = runner.stream_session(ssc)
+        for i, (prompt, n_new, arrival) in reqs:
+            sess.submit(GenRequest(uid=i, tokens=prompt,
+                                   max_new_tokens=n_new,
+                                   temperature=LM_TEMPERATURE,
+                                   arrival=arrival))
+        steps = grouped_steps = 0
+        t1 = clock()
+        while sess.queue or sess.num_active:
+            joins, groups = len(sess.events), len(sess.encode_groups)
+            qops.reset_launch_counts()
+            sess.step()
+            got = qops.launch_counts()
+            n_join = sum(1 for e in sess.events[joins:] if e[0] == "join")
+            grouped = len(sess.encode_groups) - groups
+            want = dict.fromkeys(got, 0)
+            want[enc_of[codec]] += n_join + grouped
+            want[dec_of[codec]] += n_join + grouped
+            check(grouped <= 1 and got == want,
+                  f"stream {codec} step {sess.step_count}: launches "
+                  f"{ {k: v for k, v in got.items() if v} }, expected "
+                  f"{ {k: v for k, v in want.items() if v} } ({n_join} "
+                  f"joins, {grouped} grouped encode)")
+            for k, v in got.items():
+                counts[k] += v
+            steps += 1
+            grouped_steps += grouped
+        wall_ms = (clock() - t1) * 1e3
+        toks = {r.uid: r.result.tolist() for r in sess.completed}
+        lm_solo_equal(lambda: runner.stream_session(ServeConfig(
+            max_batch=1, max_seq_len=LM_SEQ)), reqs, toks,
+            f"stream {codec}", LM_TEMPERATURE)
+        timed = timed_stream_run(torch, runner.stream_session(ssc), reqs,
+                                 LM_TEMPERATURE)
+        check(timed["tokens"] == toks,
+              f"stream {codec}: the timed run's tokens differ")
+        med = {k: statistics.median(timed[k])
+               for k in ("join", "head", "encode", "decode", "tail")}
+        prof = profile_stream_steps(torch, runner.stream_session(ssc),
+                                    cfg.vocab_size)
+        streams[codec] = dict(
+            plan=dict(point=names[LM_STREAM_POINT], bits=LM_STREAM_BITS),
+            steps=steps, grouped_steps=grouped_steps,
+            tokens=sess.tokens_out, wall_ms=wall_ms,
+            tokens_per_s=sess.tokens_out / wall_ms * 1e3,
+            bytes_sent=sess.bytes_sent, header_bytes=sess.header.nbytes,
+            frame_bytes=statistics.mean(timed["frame_bytes"]),
+            kv_bytes_ratio=sess.kv_bytes_ratio, ms=med, profile=prof,
+            distinct_tokens=[len(set(v)) for _, v in sorted(toks.items())])
+        print(f"  (c) {codec:10s} at {names[LM_STREAM_POINT]}/"
+              f"{LM_STREAM_BITS} bits: {steps} steps ({grouped_steps} "
+              f"grouped encodes), {sess.tokens_out} tokens in "
+              f"{wall_ms:.1f} ms ({streams[codec]['tokens_per_s']:.1f} "
+              f"tokens/s); a token: head {med['head']:.3f} ms, encode "
+              f"{med['encode']:.3f}, decode {med['decode']:.3f}, tail "
+              f"{med['tail']:.3f}; a join {med['join']:.2f} ms; "
+              f"{streams[codec]['frame_bytes']:.1f} B a frame; int8 KV "
+              f"{sess.kv_bytes_ratio:.4f} of bf16; sampled tokens (distinct "
+              f"a request {streams[codec]['distinct_tokens']}) == alone")
+        print(f"      profiled ({LM_MAX_BATCH} active slots, "
+              f"{LM_PROFILE_STEPS} steps): {prof['step_ms']:.2f} ms a step, "
+              f"{prof['kernels_per_step']:.0f} device kernels a step, "
+              f"{prof['device_ms_per_step']:.3f} ms of device time "
+              f"(busy {prof['busy_share']:.1%}, idle "
+              f"{1 - prof['busy_share']:.1%})")
+    for codec in CODECS:
+        for name in (enc_of[codec], dec_of[codec]):
+            check(counts[name] > 0, f"{name} never launched on the stream")
+    check(counts["huffman_host_route"] == 0, "a Huffman frame took the host")
+
+    # The same path at a small size, card against CPU: reduced olmo-1b in
+    # float32, its prefill logits and greedy tokens.
+    small = get_config(LM_ARCH).reduced()
+    sm = build_model(small)
+    cpu_p = sm.init(0, "cpu")
+    card_p = params_to(cpu_p, dev)
+    sb = make_batch(small, 2, 12, seed=3)
+    with torch.no_grad():
+        lc = sm.forward(card_p, batch_to(sb, dev)).cpu()
+        lh = sm.forward(cpu_p, batch_to(sb, "cpu"))
+    rel = float((lc - lh).abs().max() / lh.abs().max())
+    check(rel <= LM_SMALL_RTOL, f"reduced LM card/cpu logits {rel:.2e}")
+    ssc2 = ServeConfig(max_batch=2, max_seq_len=24)
+    tc = ServeSession(sm, card_p, ssc2).generate(sb, 8)
+    th = ServeSession(sm, cpu_p, ssc2).generate(sb, 8)
+    check((tc == th).all(), "reduced LM card/cpu tokens")
+    print(f"  reduced {LM_ARCH} f32: card vs CPU logits {rel:.2e} of scale "
+          f"(rtol {LM_SMALL_RTOL}), greedy tokens equal; lm stream "
+          f"launches {({k: v for k, v in counts.items() if v})}")
+    out.update(session=session, engine=engine, calibration_s=calib_s,
+               decisions={str(k): v for k, v in decisions.items()},
+               kernel_max_diff=worst, kernel_ms=kernel_ms, streams=streams,
+               launches=counts, small_rel=rel)
+    results["lm"] = out
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [v for k in sorted(tree) for v in _leaves(tree[k])]
@@ -1591,8 +2146,9 @@ def main(argv=None) -> int:
     rows += k6_rows
     fleet = step("fleet", serve_fleet, params)
     three = step("three-tier", serve_three_tier, params)
+    lm = step("lm serving", serve_lm)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
-             "threelaunch": k6_path, "three_tier": three}
+             "threelaunch": k6_path, "three_tier": three, "lm_stream": lm}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

@@ -1,5 +1,6 @@
 from repro_torch.config.types import (
     ModelConfig,
+    ServeConfig,
     JaladConfig,
     DeviceProfile,
     TierPowerModel,
@@ -12,6 +13,7 @@ from repro_torch.config.registry import register, get_config, list_archs
 
 __all__ = [
     "ModelConfig",
+    "ServeConfig",
     "JaladConfig",
     "DeviceProfile",
     "TierPowerModel",

@@ -1,4 +1,4 @@
-"""Typed configuration objects: model architectures and the JALAD
+"""Typed configuration objects: model architectures, serving and the JALAD
 decoupling engine (the port's own copy of the reference's dataclasses).
 
 ``ModelConfig`` keeps the reference's fields, order and defaults exactly:
@@ -151,6 +151,20 @@ class ModelConfig:
             dtype="float32",
             param_dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 8
+    max_seq_len: int = 2048
+    prefill_chunk: int = 512
+    kv_cache_bits: int = 16          # 16 = bf16; 8/4 -> JALAD-quantized cache
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------

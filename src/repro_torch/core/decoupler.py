@@ -5,8 +5,9 @@ latency model and planner into the paper's decision procedure.
 
 The three-tier split (device -> edge server -> cloud) is here too:
 :class:`TriDecoupledRunner` and the engine's ``tri_space`` /
-``decide_tri``. The token-streaming parts of the reference are not ported
-yet.
+``decide_tri``; so is token streaming: the engine's ``stream_terms`` /
+``decide_streaming`` and ``DecoupledRunner.stream_session``. Not ported:
+``run_simulated``, ``compress_state`` and the meshed cloud.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ if TYPE_CHECKING:
 from repro_torch.config.types import JaladConfig
 from repro_torch.core.ilp import ILPProblem, solve
 from repro_torch.core.latency import LatencyModel
-from repro_torch.core.planner import PlanSpace
+from repro_torch.core.planner import PlanSpace, StreamPlanTerms
 from repro_torch.core.predictor import PredictorTables
 from repro_torch.core.tri_planner import TriPlanSpace
 from repro_torch.device import tensor_device
@@ -152,6 +153,18 @@ class DecoupledRunner:
         blob, extras = self.edge_step(batch)
         return self.cloud_step(blob, extras), blob.nbytes
 
+    def stream_session(self, serve_cfg, cloud_kv_bits: int = 8):
+        """Token-level serving under this runner's plan: a
+        :class:`~repro_torch.serving.streaming.TokenStreamSession` whose
+        decode loop runs head on the edge, the boundary through this
+        codec and the tail on the cloud every token (int8 cloud KV by
+        default)."""
+        from repro_torch.serving.streaming import TokenStreamSession
+
+        return TokenStreamSession(self.model, self.params, serve_cfg,
+                                  plan=self.plan,
+                                  cloud_kv_bits=cloud_kv_bits)
+
 
 @dataclass
 class TriDecoupledRunner:
@@ -236,6 +249,8 @@ class JaladEngine:
     point_indices: Optional[List[int]] = None   # tables row -> model point
     _plan_space: Optional[PlanSpace] = field(
         default=None, repr=False, compare=False)
+    _stream_terms: Optional[StreamPlanTerms] = field(
+        default=None, repr=False, compare=False)
     _tri_space: Optional[TriPlanSpace] = field(
         default=None, repr=False, compare=False)
 
@@ -296,6 +311,40 @@ class JaladEngine:
             return space.cloud_only_plan(bw)
         return space.plan_from_solution(sol)
 
+    @property
+    def stream_terms(self) -> StreamPlanTerms:
+        """The per-token steady-state extension of this engine's PlanSpace
+        (built lazily, cached). The calibration unit is one batch of
+        ``input_bytes / 4`` tokens (int32 token ids, ``input_bytes = B * S
+        * 4``), which turns the per-batch FMAC time vectors into per-token
+        stage times."""
+        if self._stream_terms is None:
+            if self.model.cfg.family == "cnn":
+                raise ValueError(
+                    "token streaming is autoregressive decode; CNNs "
+                    "decouple per request (use decide/make_runner)")
+            self._stream_terms = self.plan_space.with_streaming(
+                self.model.cfg.d_model,
+                self.latency.input_bytes / 4.0,
+            )
+        return self._stream_terms
+
+    def decide_streaming(self, bandwidth: Optional[float] = None,
+                         expected_tokens: float = 128.0,
+                         method: str = "planner") -> DecoupledPlan:
+        """Decide (point, bits, codec) for token-level streaming: the
+        one-shot objective plus ``expected_tokens`` times the per-token
+        steady-state term. ``method`` mirrors :meth:`decide`."""
+        bw = bandwidth if bandwidth is not None else \
+            self.cfg.bandwidth_bytes_per_s
+        terms = self.stream_terms
+        if method == "planner":
+            return terms.decide(bw, expected_tokens)
+        sol = solve(terms.ilp_problem(bw, expected_tokens), method)
+        if sol is None:
+            return terms.cloud_only_plan(bw, expected_tokens)
+        return terms.plan_from_solution(sol)
+
     def for_edge(self, edge_profile) -> "JaladEngine":
         """A per-device engine sharing this engine's tables, cloud profile
         and PlanSpace precomputation; only the edge-time vector differs.
@@ -305,7 +354,7 @@ class JaladEngine:
         return dataclasses.replace(
             self, latency=lat,
             _plan_space=self.plan_space.with_edge(edge_profile),
-            _tri_space=None)
+            _stream_terms=None, _tri_space=None)
 
     def make_runner(self, params, plan: DecoupledPlan) -> DecoupledRunner:
         return DecoupledRunner(self.model, params, plan)

@@ -297,6 +297,143 @@ class PlanSpace:
             codec=self.codecs[ki],
         )
 
+    def with_streaming(self, d_model: int,
+                       tokens_per_batch: float) -> "StreamPlanTerms":
+        """Extend this space with the per-token steady-state term for
+        autoregressive token streaming (see :class:`StreamPlanTerms`)."""
+        return StreamPlanTerms.build(self, d_model, tokens_per_batch)
+
+
+# ---------------------------------------------------------------------------
+# Token-streaming decision: prefill + E[tokens] * steady-state term
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class StreamPlanTerms:
+    """Per-token steady-state extension of one :class:`PlanSpace`.
+
+    Token streaming pays the wire *every decode step*, so the objective
+    becomes (Edgent, arXiv:1806.07840, re-priced per step)
+
+        Z_stream = Z_prefill(i,c,k,BW)
+                 + E[tokens] * (t_E(i) + bytes_tok(c,k)/BW + t_C(i))
+
+    where ``t_E``/``t_C`` are per-*token* stage times (the batch-unit
+    FMAC vectors divided by ``tokens_per_batch``) and ``bytes_tok`` is the
+    stream-frame wire size of one ``(1, 1, d_model)`` boundary row: the
+    codec's shape-only size minus the 1-byte bits tag that the session's
+    ``StreamHeader`` amortizes away (an upper bound for entropy codecs).
+
+    ``decide`` stays one fused argmin; ``ilp_problem`` materializes the
+    same costs for the enumeration / branch-and-bound oracles. The float64
+    expressions are the reference's, op for op.
+    """
+
+    space: PlanSpace
+    d_model: int
+    tokens_per_batch: float
+    token_bytes: np.ndarray            # (C*K,) stream-frame bytes per token
+
+    @classmethod
+    def build(cls, space: PlanSpace, d_model: int,
+              tokens_per_batch: float) -> "StreamPlanTerms":
+        if tokens_per_batch <= 0:
+            raise ValueError("tokens_per_batch must be positive")
+        from repro_torch.codec import get_codec  # lazy: codec imports core
+
+        shape = (1, 1, int(d_model))
+        k = len(space.codecs)
+        tb = np.empty(space.n_choices, dtype=np.float64)
+        for j in range(space.n_choices):
+            ci, ki = divmod(j, k)
+            tb[j] = float(
+                get_codec(space.codecs[ki]).wire_size_bytes(
+                    shape, space.bits_choices[ci])) - 1.0
+        return cls(space=space, d_model=int(d_model),
+                   tokens_per_batch=float(tokens_per_batch),
+                   token_bytes=_readonly(tb))
+
+    # ------------------------------------------------------------- costs
+    def _steady_extra(self, bandwidth: float,
+                      expected_tokens: float) -> np.ndarray:
+        """(N, C*K) matrix of E[tokens] * per-token steady-state cost."""
+        sp = self.space
+        extra = (sp.edge_vec + sp.cloud_vec)[:, None] / self.tokens_per_batch
+        extra = extra + self.token_bytes[None, :] / float(bandwidth)
+        extra = extra * float(expected_tokens)
+        return extra
+
+    def token_time(self, plan: "DecoupledPlan", bandwidth: float) -> float:
+        """Steady-state seconds per generated token under a concrete plan:
+        what the serving session's simulated clock charges a step."""
+        sp = self.space
+        if plan.is_cloud_only:
+            return (4.0 / float(bandwidth)
+                    + sp.cloud_exec_full() / self.tokens_per_batch)
+        row = sp.row_of_point(plan.point)
+        j = (sp.bits_choices.index(plan.bits) * len(sp.codecs)
+             + sp.codecs.index(plan.codec))
+        return float(
+            (sp.edge_vec[row] + sp.cloud_vec[row]) / self.tokens_per_batch
+            + self.token_bytes[j] / float(bandwidth)
+        )
+
+    def cloud_only_stream_time(self, bandwidth: float,
+                               expected_tokens: float) -> float:
+        """Z_stream of the no-decoupling fallback: upload the input, run
+        everything on the cloud, then stream one 4-byte token id back per
+        step (the boundary never crosses the link)."""
+        sp = self.space
+        per_tok = (4.0 / float(bandwidth)
+                   + sp.cloud_exec_full() / self.tokens_per_batch)
+        return sp.cloud_only_time(bandwidth) + float(expected_tokens) * per_tok
+
+    def cloud_only_plan(self, bandwidth: float, expected_tokens: float,
+                        solve_ms: float = 0.0) -> "DecoupledPlan":
+        return _plan_cls()(
+            -1, 0, self.cloud_only_stream_time(bandwidth, expected_tokens),
+            0.0, solve_ms)
+
+    # ----------------------------------------------------------- deciding
+    def decide(self, bandwidth: float,
+               expected_tokens: float) -> "DecoupledPlan":
+        """One fused ``argmin(base + size/BW + E * steady)`` over the
+        same precomputed grid as :meth:`PlanSpace.decide`."""
+        t0 = time.perf_counter()
+        sp = self.space
+        cost = sp.size_flat / float(bandwidth)
+        cost += sp.base
+        cost += self._steady_extra(bandwidth, expected_tokens)
+        j = int(cost.argmin())
+        best = float(cost.flat[j])
+        ms = (time.perf_counter() - t0) * 1e3
+        if best == _INF:
+            return self.cloud_only_plan(bandwidth, expected_tokens, ms)
+        i, jj = divmod(j, cost.shape[1])
+        ci, ki = divmod(jj, len(sp.codecs))
+        return _plan_cls()(
+            point=sp.point_rows[i],
+            bits=sp.bits_choices[ci],
+            predicted_latency=best,
+            predicted_acc_drop=float(sp.acc_flat.flat[j]),
+            solve_ms=ms,
+            codec=sp.codecs[ki],
+        )
+
+    # ------------------------------------------------------------ oracles
+    def ilp_problem(self, bandwidth: float,
+                    expected_tokens: float) -> ILPProblem:
+        """The exact streaming selection problem for the enumeration /
+        branch-and-bound oracles (cell costs equal :meth:`decide`'s)."""
+        sp = self.space
+        cost = sp.base_raw + sp.size_flat / float(bandwidth)
+        cost = cost + self._steady_extra(bandwidth, expected_tokens)
+        return ILPProblem(cost, np.asarray(sp.acc_flat), sp.budget)
+
+    def plan_from_solution(self, sol: ILPSolution) -> "DecoupledPlan":
+        return self.space.plan_from_solution(sol)
+
 
 # ---------------------------------------------------------------------------
 # Fleet decision plane: D devices, one fused re-plan

@@ -15,6 +15,15 @@ accumulated on the device. Wire sizes come from
 ``BoundaryCodec.transfer_size_batch``: shape-only for fixed-rate codecs,
 one device histogram pass per (point, batch) for entropy codecs.
 
+The historical per-cell loop is kept as :func:`build_tables_reference`,
+the oracle the one-pass :func:`build_tables` is pinned bitwise-equal to
+(``tests/test_torch_lm_serving.py``). Both count their host/device
+traffic into a :class:`CalibrationStats` the caller passes.
+
+Decoders score the final position (top-1 of the last token's logits);
+with no labels in the batch the un-quantized model's own prediction is
+the reference, exactly how A_i(c) behaves for a deployed model.
+
 Table files are the reference's npz format: a table built by either
 package loads in the other.
 """
@@ -112,6 +121,23 @@ class PredictorTables:
         return hashlib.sha256(blob.encode()).hexdigest()[:20]
 
 
+@dataclass
+class CalibrationStats:
+    """Host/device traffic of one ``build_tables*`` call."""
+
+    batches: int = 0
+    step_dispatches: int = 0     # passes carrying tail forwards
+    host_syncs: int = 0          # device->host result fetches (accuracy)
+    size_calls: int = 0          # transfer_size_batch / per-cell size calls
+    tail_forwards: int = 0       # tail forward executions (both paths)
+
+
+def _top1(logits: torch.Tensor) -> torch.Tensor:
+    if logits.ndim == 3:          # decoder: score the final position
+        logits = logits[:, -1]
+    return logits.argmax(-1)
+
+
 def _batch_size(batch: Dict, labels_key: str) -> int:
     if labels_key in batch:
         return int(np.shape(batch[labels_key])[0])
@@ -128,11 +154,12 @@ def build_tables(
     codecs: Sequence[str] = ("huffman",),
     points: Optional[Sequence[int]] = None,
     labels_key: str = "labels",
+    stats: Optional[CalibrationStats] = None,
 ) -> PredictorTables:
     """One-pass calibration (see module docstring) on the parameters'
     device: for each point i, bit width c and codec k, the accuracy drop
     of the boundary the cloud would reconstruct and the exact per-batch
-    wire size."""
+    wire size. Equal, bit for bit, to :func:`build_tables_reference`."""
     from repro_torch.codec import get_codec
 
     device = tensor_device(params)
@@ -151,6 +178,7 @@ def build_tables(
             key_order.append(c.value_key)
     key_of = [key_order.index(c.value_key) for c in codec_objs]
 
+    stats = CalibrationStats() if stats is None else stats
     correct_base = 0
     total = 0
     correct = np.zeros((n_p, len(key_order), n_c), np.int64)
@@ -159,8 +187,10 @@ def build_tables(
 
     for batch in batches:
         n_batches += 1
+        stats.batches += 1
+        stats.step_dispatches += 1
         tb = batch_to(batch, device)
-        base_pred = model.forward(params, tb).argmax(-1)
+        base_pred = _top1(model.forward(params, tb))
         ref = tb[labels_key] if labels_key in tb else base_pred
         counts = torch.zeros((n_p, len(key_order), n_c), dtype=torch.int64,
                              device=device)
@@ -170,14 +200,17 @@ def build_tables(
                 xq = key_rep[key].simulate_batch(boundary, bits_t)
                 logits = model.run_tail(params, xq.reshape(
                     (-1,) + tuple(boundary.shape[1:])), point)
-                preds = logits.argmax(-1).reshape(n_c, -1)
+                stats.tail_forwards += 1
+                preds = _top1(logits).reshape(n_c, -1)
                 counts[pi, kk] = (preds == ref[None]).sum(dim=1)
             for ki, codec in enumerate(codec_objs):
                 sizes[pi, :, ki] += codec.transfer_size_batch(boundary,
                                                               bits_t)
+                stats.size_calls += 1
         total += _batch_size(batch, labels_key)
         correct_base += int((base_pred == ref).sum())
         correct += counts.cpu().numpy()
+        stats.host_syncs += 1
 
     base_acc = correct_base / max(total, 1)
     acc_counts = np.zeros((n_p, n_c, n_k))
@@ -187,6 +220,81 @@ def build_tables(
     return PredictorTables(
         points=[names[p] for p in pts],
         bits_choices=list(bits_t),
+        codecs=list(codecs),
+        acc_drop=np.maximum(base_acc - acc, 0.0),
+        size_bytes=sizes / max(n_batches, 1),
+        base_accuracy=base_acc,
+    )
+
+
+@torch.no_grad()
+def build_tables_reference(
+    model: Model,
+    params,
+    batches: Sequence[Dict],
+    bits_choices: Sequence[int],
+    *,
+    codecs: Sequence[str] = ("huffman",),
+    points: Optional[Sequence[int]] = None,
+    labels_key: str = "labels",
+    stats: Optional[CalibrationStats] = None,
+) -> PredictorTables:
+    """The historical ``batches x points x bits x codecs`` loop: one tail
+    forward and one host sync per (point, bits) cell and value transform,
+    one size call per (point, bits, codec). The oracle the one-pass
+    :func:`build_tables` is pinned bitwise-equal to."""
+    from repro_torch.codec import get_codec
+
+    device = tensor_device(params)
+    names = model.decoupling_points()
+    pts = list(points) if points is not None else list(range(len(names)))
+    n_c = len(bits_choices)
+    codec_objs = [get_codec(c) for c in codecs]
+    n_k = len(codec_objs)
+    stats = CalibrationStats() if stats is None else stats
+
+    correct_base = 0
+    total = 0
+    correct = np.zeros((len(pts), n_c, n_k))
+    sizes = np.zeros((len(pts), n_c, n_k))
+    n_batches = 0
+
+    for batch in batches:
+        n_batches += 1
+        stats.batches += 1
+        tb = batch_to(batch, device)
+        base_pred = _top1(model.forward(params, tb)).cpu().numpy()
+        stats.host_syncs += 1
+        ref = (tb[labels_key].cpu().numpy() if labels_key in tb
+               else base_pred)
+        correct_base += int((base_pred == ref).sum())
+        total += ref.shape[0]
+
+        for pi, point in enumerate(pts):
+            boundary = model.run_head(params, tb, point)
+            for ci, bits in enumerate(bits_choices):
+                n_ok_by_key: Dict[str, int] = {}
+                for ki, codec in enumerate(codec_objs):
+                    key = codec.value_key
+                    if key not in n_ok_by_key:
+                        xq = codec.simulate(boundary, bits)
+                        logits = model.run_tail(params, xq, point)
+                        stats.step_dispatches += 1
+                        stats.host_syncs += 1
+                        stats.tail_forwards += 1
+                        n_ok_by_key[key] = int(
+                            (_top1(logits).cpu().numpy() == ref).sum())
+                    correct[pi, ci, ki] += n_ok_by_key[key]
+                    # Per-batch wire bytes: the full batch boundary's size.
+                    sizes[pi, ci, ki] += codec.transfer_size_bytes(
+                        boundary, bits)
+                    stats.size_calls += 1
+
+    base_acc = correct_base / max(total, 1)
+    acc = correct / max(total, 1)
+    return PredictorTables(
+        points=[names[p] for p in pts],
+        bits_choices=list(bits_choices),
         codecs=list(codecs),
         acc_drop=np.maximum(base_acc - acc, 0.0),
         size_bytes=sizes / max(n_batches, 1),

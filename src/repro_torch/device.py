@@ -5,7 +5,8 @@ card; asking for ``cuda`` on a machine without one raises instead of
 quietly running on the CPU. ``device="cpu"`` is the opt-in the CPU tests
 use. Resolving a device also turns TF32 off for convolutions and matrix
 products, so the models run in full float32 on the card, as the
-reference does.
+reference does, and keeps bfloat16 matrix products from reducing their
+split-K partial sums in bfloat16.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CPU")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

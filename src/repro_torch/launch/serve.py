@@ -1,16 +1,20 @@
-"""Serving launcher of the port: JALAD edge-cloud serving of the CNN
-testbed, synchronous or pipelined, on the CUDA card unless ``--device cpu``
-is given.
+"""Serving launcher of the port: batched and continuous-batching
+generation for the dense decoders, and JALAD edge-cloud serving of the CNN
+testbed (synchronous or pipelined), on the CUDA card unless ``--device
+cpu`` is given.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --tokens 16                       # one-shot batched generation
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --continuous --requests 6         # continuous-batching scheduler
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --reduced --continuous --device cpu   # small CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --jalad --codec huffman --bandwidth 300e3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --jalad --pipeline --codec auto --requests 16   # overlapped stages
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --reduced --jalad --device cpu       # small CPU run
-
-The continuous-batching (``--continuous``) and LM paths are not ported yet
-and raise.
 """
 from __future__ import annotations
 
@@ -19,11 +23,73 @@ import logging
 import sys
 import time
 
-from repro_torch.config import JaladConfig, get_config
+import numpy as np
+
+from repro_torch.config import JaladConfig, ServeConfig, get_config
 from repro_torch.data.synthetic import make_batch
 from repro_torch.device import resolve_device
 
 log = logging.getLogger("repro_torch.launch.serve")
+
+
+def serve_lm(args) -> int:
+    """KV-cache generation with a dense decoder: one batched session, or
+    the continuous-batching engine (``--continuous``)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServeSession
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(args.seed, device)
+    log.info("%s: %d parameters on %s in %.2fs", cfg.arch_id,
+             model.param_count(), device, time.perf_counter() - t0)
+    sc = ServeConfig(max_batch=args.batch,
+                     max_seq_len=args.prompt + args.tokens, seed=args.seed)
+    if args.continuous:
+        return _serve_lm_continuous(args, cfg, model, params, sc)
+    session = ServeSession(model, params, sc)
+    batch = make_batch(cfg, args.batch, args.prompt, seed=args.seed)
+    t0 = time.perf_counter()
+    out = session.generate(batch, args.tokens, temperature=args.temperature,
+                           seed=args.seed)
+    log.info("generated %s tokens for %d requests in %.2fs", out.shape,
+             args.batch, time.perf_counter() - t0)
+    print(out[:, :16])
+    return 0
+
+
+def _serve_lm_continuous(args, cfg, model, params, sc) -> int:
+    """Continuous batching: staggered arrivals, per-request lengths."""
+    from repro_torch.serving.scheduler import (
+        ContinuousBatchingEngine,
+        GenRequest,
+    )
+
+    engine = ContinuousBatchingEngine(model, params, sc)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        plen = int(rng.integers(min(4, args.prompt), args.prompt + 1))
+        prompt = rng.integers(1, cfg.vocab_size, size=plen).astype(np.int32)
+        engine.submit(GenRequest(
+            uid=i, tokens=prompt,
+            max_new_tokens=int(
+                rng.integers(min(2, args.tokens), args.tokens + 1)
+            ),
+            temperature=args.temperature, arrival=i // 2,
+        ))
+    t0 = time.perf_counter()
+    for req in engine.run():
+        log.info("req %d: joined@%d done@%d slot=%d tokens=%s", req.uid,
+                 req.joined_step, req.done_step, req.slot,
+                 req.result[:8].tolist())
+    log.info("%d requests in %d engine steps (%d joins/evictions logged) "
+             "in %.2fs", len(engine.completed), engine.step_count,
+             len(engine.events), time.perf_counter() - t0)
+    return 0
 
 
 def serve_jalad(args) -> int:
@@ -107,10 +173,13 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline", action="store_true",
                     help="overlap edge/link/cloud stages (with --jalad)")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous-batching LM scheduler (not yet ported)")
+                    help="continuous-batching scheduler (LM mode)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--bandwidth", type=float, default=1e6)
     ap.add_argument("--codec", default="auto",
                     help="boundary codec for --jalad: a registry id "
@@ -126,11 +195,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
-    if args.continuous or not args.jalad:
-        raise NotImplementedError(
-            "repro_torch: only the --jalad paths are ported yet "
-            "(--continuous and the LM paths are not)")
-    return serve_jalad(args)
+    if args.jalad:
+        return serve_jalad(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

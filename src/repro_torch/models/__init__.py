@@ -1,1 +1,2 @@
-"""Models of the port: the paper's CNN testbed behind the ``Model`` API."""
+"""Models of the port behind the ``Model`` API: the paper's CNN testbed
+and the dense decoder family (``transformer``, ``blocks``, ``layers``)."""

@@ -1,7 +1,10 @@
 """Parameters across packages: a reference parameter tree, fetched to the
 host as numpy arrays, becomes the port's tree of tensors (same keys, same
-layouts: OIHW conv weights, ``(fin, fout)`` FC weights), so both packages
-compute the same function from the same weights."""
+layouts: OIHW conv weights, ``(fin, fout)`` FC weights; for a decoder the
+``segments`` list of per-segment trees stacked along a leading layer
+axis), so both packages compute the same function from the same
+weights. A bfloat16 leaf arrives as numpy's ``ml_dtypes`` bfloat16 and is
+carried over by its bits."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -20,7 +23,13 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.view(np.uint16)).view(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(arr).to(dev)
 
     return walk(tree)
 
@@ -32,6 +41,8 @@ def params_to(tree: Dict[str, Any], device: DeviceLike) -> Dict[str, Any]:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
         return node.to(dev)
 
     return walk(tree)

@@ -10,6 +10,7 @@ differ from the reference's (JAX's PRNG is not reproducible in PyTorch);
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -29,7 +30,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]   # one logical axis name (or None) per dim
     dtype: str = "bfloat16"
-    init: str = "normal"                 # normal | zeros | conv
+    init: str = "normal"                 # normal | zeros | ones | embed | conv
     scale: float = 1.0                   # stddev multiplier for "normal"
 
     def __post_init__(self):
@@ -44,6 +45,24 @@ def spec(shape, logical, dtype="bfloat16", init="normal", scale=1.0
     return ParamSpec(tuple(shape), tuple(logical), dtype, init, scale)
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def stack_specs(s: ParamSpec, n: int, axis_name: str = "layers") -> ParamSpec:
+    """Prepend a layer dimension of size n (per-layer params, stacked)."""
+    return dataclasses.replace(
+        s, shape=(n,) + s.shape, logical=(axis_name,) + s.logical
+    )
+
+
+def stack_tree(specs, n: int, axis_name: str = "layers"):
+    """:func:`stack_specs` over every leaf of a nested dict of specs."""
+    if is_spec(specs):
+        return stack_specs(specs, n, axis_name)
+    return {k: stack_tree(v, n, axis_name) for k, v in specs.items()}
+
+
 def _fan_in(s: ParamSpec) -> int:
     # Last-but-one dims are the fan-in for 2D+ weights (the reference's rule).
     if len(s.shape) >= 2:
@@ -55,6 +74,11 @@ def materialize_leaf(gen: torch.Generator, s: ParamSpec) -> torch.Tensor:
     dtype = torch_dtype(s.dtype)
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=dtype)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=dtype)
+    if s.init == "embed":
+        out = torch.randn(s.shape, generator=gen, dtype=torch.float32)
+        return (out * s.scale).to(dtype)
     # "normal" / "conv": truncated normal, fan-in scaled.
     out = torch.empty(s.shape, dtype=torch.float32)
     std = s.scale / np.sqrt(max(_fan_in(s), 1))
@@ -63,13 +87,16 @@ def materialize_leaf(gen: torch.Generator, s: ParamSpec) -> torch.Tensor:
 
 
 def materialize(specs, seed: int, device) -> dict:
-    """Sample a nested dict of ParamSpecs on the CPU from ``seed`` (so the
-    values do not depend on the device), then move them to ``device``."""
+    """Sample a nested dict (or list) of ParamSpecs on the CPU from
+    ``seed`` (so the values do not depend on the device), then move them
+    to ``device``."""
     gen = torch.Generator().manual_seed(int(seed))
 
     def walk(tree):
         if isinstance(tree, ParamSpec):
             return materialize_leaf(gen, tree).to(device)
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
         return {k: walk(v) for k, v in tree.items()}
 
     return walk(specs)

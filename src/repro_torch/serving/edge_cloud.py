@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import (
+    Any, Dict, Iterable, List, Optional, Protocol, Tuple, runtime_checkable,
+)
 
 import torch
 
@@ -57,6 +59,18 @@ class LatencyBreakdown:
         # total keeps the bits of edge + transfer + cloud.
         return (self.edge_s + self.transfer_s + self.edge_server_s
                 + self.transfer2_s + self.cloud_s)
+
+
+@runtime_checkable
+class Servable(Protocol):
+    """Anything ``serve_trace`` can advance under one trace step: the item
+    prices and executes itself against the server. Token-streaming
+    sessions (:class:`~repro_torch.serving.streaming.TokenStreamSession`)
+    implement it; plain batches don't and go through ``serve_batch``."""
+
+    def serve(self, server: "EdgeCloudServer",
+              bandwidth: float) -> "LatencyBreakdown":
+        ...
 
 
 @dataclass
@@ -159,9 +173,20 @@ class EdgeCloudServer:
     def serve_trace(self, items: Iterable[Any],
                     bandwidth_trace: Iterable[float]
                     ) -> List[LatencyBreakdown]:
-        """Serve a stream of batches under a bandwidth trace (Fig. 8)."""
-        return [self.serve_batch(item, bw)[1]
-                for item, bw in zip(items, bandwidth_trace)]
+        """Serve a stream of trace items under a bandwidth trace (Fig. 8).
+        An item that implements the :class:`Servable` protocol (e.g. a
+        token-streaming session) advances itself for one trace step;
+        anything else is a one-shot batch. Both paths record through
+        :meth:`record`, so the clock, the log and the bandwidth estimator
+        see one sequence."""
+        out: List[LatencyBreakdown] = []
+        for item, bw in zip(items, bandwidth_trace):
+            serve = getattr(item, "serve", None)
+            if callable(serve):
+                out.append(serve(self, bw))
+            else:
+                out.append(self.serve_batch(item, bw)[1])
+        return out
 
 
 def build_edge_cloud_server(
@@ -180,9 +205,13 @@ def build_edge_cloud_server(
     """End-to-end factory: model -> calibration -> predictors -> latency
     model -> engine -> server, on ``device`` (default: the CUDA card;
     caller-supplied ``params`` bring their own device). Every latency term
-    is per calibration batch. ``tables_cache_dir`` loads a table file of
-    the same key (the reference's key and file format) instead of
-    recalibrating; it is ignored when the caller supplies ``params``."""
+    is per calibration batch. Without labels (a decoder's token batches)
+    the accuracy drop is measured against the un-quantized model's own
+    predictions; a decoder's ``seq_len``-token batches set the per-batch
+    input bytes, ``batch * seq_len * 4`` (int32 token ids).
+    ``tables_cache_dir`` loads a table file of the same key (the
+    reference's key and file format) instead of recalibrating; it is
+    ignored when the caller supplies ``params``."""
     from repro_torch.core.predictor import (
         PredictorTables,
         build_tables,
@@ -219,7 +248,10 @@ def build_edge_cloud_server(
         config=repr(cfg),
     )
     tables, _ = load_or_build_tables(cache_dir, key, calibrate)
-    input_bytes = calib_batch_size * 3 * cfg.image_size * cfg.image_size
+    if cfg.family == "cnn":
+        input_bytes = calib_batch_size * 3 * cfg.image_size * cfg.image_size
+    else:
+        input_bytes = calib_batch_size * seq_len * 4
     fmacs = model.per_point_fmacs(calib_batch_size, seq_len)
     lat = LatencyModel(fmacs, jalad_cfg.edge, jalad_cfg.cloud,
                        float(input_bytes))

@@ -15,6 +15,17 @@ torch = pytest.importorskip("torch")
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
+# The dense-LM serving slice's modules: the sweep must reach each of them.
+LM_MODULES = (
+    "repro_torch.configs.olmo_1b", "repro_torch.configs.qwen3_8b",
+    "repro_torch.models.layers.norms", "repro_torch.models.layers.rope",
+    "repro_torch.models.layers.mlp", "repro_torch.models.layers.attention",
+    "repro_torch.models.blocks", "repro_torch.models.transformer",
+    "repro_torch.serving.scheduler", "repro_torch.serving.engine",
+    "repro_torch.serving.streaming",
+)
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -26,13 +37,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
-        "print(len(mods), bad)\n"
+        "print(len(mods), bad, ','.join(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
-                         capture_output=True, text=True).stdout.split(" ", 1)
-    assert int(out[0]) >= 44          # every module of the port was imported
+                         capture_output=True, text=True).stdout.split(" ")
+    assert int(out[0]) >= 56          # every module of the port was imported
     assert out[1].strip() == "[]"
+    assert set(LM_MODULES) <= set(out[2].strip().split(","))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -45,9 +57,11 @@ def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.serving.edge_cloud import build_edge_cloud_server
     from repro_torch.serving.fleet import build_fleet_server
     from repro_torch.serving.three_tier import build_three_tier_server
+    from repro_torch.launch.serve import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("resnet50").reduced()
+    lm = build_model(get_config("olmo-1b").reduced())
     for call in (
         lambda: resolve_device(None),
         lambda: resolve_device("cuda"),
@@ -61,6 +75,12 @@ def test_cuda_without_a_card_raises(monkeypatch):
                                    calib_batches=1, calib_batch_size=1),
         lambda: build_three_tier_server(cfg, JaladConfig(), [EDGE_TX2],
                                         calib_batches=1, calib_batch_size=1),
+        lambda: lm.init(0),
+        lambda: lm.init_caches(1, 4),
+        lambda: build_edge_cloud_server(lm.cfg, JaladConfig(),
+                                        calib_batches=1, calib_batch_size=1,
+                                        seq_len=4),
+        lambda: main(["--arch", "olmo-1b", "--reduced", "--continuous"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
@@ -72,9 +92,13 @@ def test_device_resolution_turns_tf32_off(monkeypatch):
 
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
     resolve_device("cpu")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+    assert not (torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction)
 
 
 def test_wrappers_never_fall_back_for_other_devices():
@@ -111,11 +135,15 @@ def test_wrappers_never_fall_back_for_other_devices():
 
 
 def test_unported_serve_modes_raise():
+    """Token generation needs a decoder: a CNN without ``--jalad`` raises,
+    in both LM modes. (The continuous-batching mode itself is ported: it
+    runs on the CPU in ``test_torch_lm_serving.py``.)"""
     from repro_torch.launch.serve import main
 
-    for argv in (["--arch", "olmo-1b", "--continuous"],
-                 ["--arch", "resnet50"]):
-        with pytest.raises(NotImplementedError):
+    for argv in (["--arch", "resnet50", "--reduced", "--device", "cpu",
+                  "--continuous"],
+                 ["--arch", "resnet50", "--reduced", "--device", "cpu"]):
+        with pytest.raises(ValueError, match="autoregressive"):
             main(argv)
 
 
