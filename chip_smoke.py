@@ -113,7 +113,26 @@ NVIDIA card.
    steps the device kernels and busy share of a step. Then reduced
    olmo-1b in float32, card against CPU: logits within ``LM_SMALL_RTOL``,
    equal greedy tokens.
-9. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+9. Serves the recurrent families at full width and depth, bfloat16,
+   random weights from seed 0: zamba2-2.7b (54 Mamba2 blocks, one shared
+   attention block after every 6) and xlstm-1.3b (42 mLSTM, 6 sLSTM
+   blocks), each through the phases of step 8: (a) ``ServeSession``
+   (batch 4, prompt 32, 16 tokens; prefill and decode-step times), split
+   equal to unsplit bit for bit at the points of ``RNN_ARCHS`` (zamba2:
+   either side of an ``A`` too), and for zamba2 one 512-token prefill,
+   which takes the chunked SSD, held against the sequential scan within
+   ``RNN_CHUNK_RTOL``; (b) the engine, greedy and sampled, batched equal
+   to solo; (c) ``build_edge_cloud_server`` and ``decide_streaming``, the
+   stream kernels K1–K5 byte for byte on real frames of k = 1..4 rows of
+   (1, 1, 2560) or (1, 1, 2048), and for each codec the stream pinned at
+   the middle point, 8 bits, with one encode and one decode launch a step
+   group plus one of each a join, batched equal to solo for
+   ``RNN_SOLO_CODEC`` (zamba2's tail KV stays bf16:
+   ``RNN_CLOUD_KV_BITS``; int8 is refused, checked); (d)
+   ``compress_state`` at 8 bits on the prefill's caches, each leaf within
+   half a quantization step of its range; (e) 5 profiled stream steps.
+   Then each model reduced, float32, card against CPU.
+10. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -227,6 +246,38 @@ LM_TEMPERATURE = 5.0
 # Reduced olmo-1b in float32 (TF32 off), card against CPU: the matrix
 # products sum in other orders, ~1e-6 of the logits' scale.
 LM_SMALL_RTOL = 1e-5
+
+# Recurrent LM serving (step 9): full-width zamba2-2.7b (Mamba2 + the one
+# shared attention block every 6) and xlstm-1.3b (mLSTM + sLSTM), bfloat16,
+# full depth, random weights from seed 0, through the same phases as step
+# 8 (LM_SESSION, LM_REQUESTS on LM_MAX_BATCH slots, LM_STREAM_BITS). Each
+# arch's stream cut and its split points: zamba2's middle point (31 of 63,
+# counting each A as a point; between the A invocations at 27 and 34), the
+# first, the points right before (5) and after (6) the first A, and the
+# last; xlstm after block 24 of 48 (point 23, an sLSTM block).
+RNN_ARCHS = {"zamba2-2.7b": dict(point=31, split=(0, 5, 6, 31, 62)),
+             "xlstm-1.3b": dict(point=23, split=(0, 23, 47))}
+# zamba2: one 512-token prefill at batch 1 takes the chunked SSD; its
+# next-token logits against the sequential scan (a 511-token prefill, then
+# one decode step), as a share of the logits' scale. The SSD runs in float32
+# either way, but its output is rounded to bfloat16 before each out_proj,
+# and an element the two sum orders leave either side of a bfloat16
+# rounding edge moves by 2^-8 of itself, through 54 blocks.
+RNN_CHUNK_PROMPT, RNN_CHUNK_RTOL = 512, 5e-2
+# A full-width zamba2 tail holds 27 Mamba2 states (float32, 1.3 MiB a row
+# a block) beside 4-5 attention KV caches: int8 KV leaves the tail at 0.94
+# of its bfloat16 bytes, which the session's bytes-halved check (the
+# reference's rule: whole tail tree, recurrent state included) refuses. So
+# its streams keep the tail KV in bfloat16; xlstm's tail has no KV at all.
+RNN_CLOUD_KV_BITS = {"zamba2-2.7b": 0, "xlstm-1.3b": 8}
+# Reduced models in float32, card against CPU (as LM_SMALL_RTOL).
+RNN_SMALL_RTOL = 1e-5
+# To keep the whole script near half its time limit: the streams' batched
+# tokens are held against one-slot sessions for one codec (the engine's
+# for every request, greedy and sampled, in (b)); calibration runs on
+# prompts of RNN_CALIB_SEQ tokens.
+RNN_SOLO_CODEC = "bitpack"
+RNN_CALIB_SEQ = 16
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -1829,62 +1880,21 @@ def profile_stream_steps(torch, sess, vocab: int) -> dict:
                 busy_share=busy_ms / LM_PROFILE_STEPS / step_ms)
 
 
-def serve_lm(torch, results):
-    """Step 8: full-width olmo-1b (bfloat16, random weights from seed 0)
-    through ServeSession, the continuous-batching engine and token
-    streaming across the JALAD cut with each codec."""
-    import numpy as np
-
-    from repro_torch.config import JaladConfig, ServeConfig, get_config
-    from repro_torch.core.decoupler import DecoupledPlan
-    from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels.quantize import ops as qops
-    from repro_torch.models.api import batch_to, build_model
-    from repro_torch.models.bridge import params_to
-    from repro_torch.serving.edge_cloud import build_edge_cloud_server
-    from repro_torch.serving.engine import ServeSession
-    from repro_torch.serving.scheduler import (
-        ContinuousBatchingEngine,
-        GenRequest,
-    )
-
-    dev = torch.device("cuda")
-    cfg = get_config(LM_ARCH)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(0, dev)
+def sync_clock(torch) -> float:
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return time.perf_counter()
+
+
+def lm_split_equal(torch, model, params, tb, s, new, points) -> None:
+    """Split (``prefill_head`` / ``prefill_tail``, ``decode_head`` /
+    ``decode_tail``) against unsplit, bit for bit, at each point: the
+    prompt's logits and one decode step's."""
     names = model.decoupling_points()
-    print(f"LM: {cfg.arch_id} ({model.param_count():,} parameters, "
-          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
-          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}); "
-          f"weights from seed 0 in {init_s:.1f} s")
-    out = dict(card=card_line(), arch=cfg.arch_id,
-               params=model.param_count(), init_s=init_s)
-
-    def clock():
-        torch.cuda.synchronize()
-        return time.perf_counter()
-
-    # (a) ServeSession, and split against unsplit at three points.
-    b, s, new = LM_SESSION
-    sc = ServeConfig(max_batch=b, max_seq_len=s + new)
-    batch = make_batch(cfg, b, s, seed=0)
-    tb = batch_to(batch, dev)
     with torch.no_grad():
-        prefill_ms = []
-        for _ in range(3):
-            t1 = clock()
-            ref_logits, ref_caches = model.prefill(params, tb, s + new)
-            prefill_ms.append((clock() - t1) * 1e3)
-        check(tuple(ref_logits.shape) == (b, s, cfg.vocab_size)
-              and bool(torch.isfinite(ref_logits).all()),
-              "LM prefill logits")
+        ref_logits, ref_caches = model.prefill(params, tb, s + new)
         nxt = ref_logits[:, -1].argmax(-1)[:, None]
-        ref_step, _ = model.decode_step(params, nxt, s, [
-            {k: v.clone() for k, v in c.items()} for c in ref_caches])
-        for point in LM_SPLIT_POINTS:
+        ref_step, _ = model.decode_step(params, nxt, s, ref_caches)
+        for point in points:
             boundary, head = model.prefill_head(params, tb, s + new, point)
             logits, tail = model.prefill_tail(params, boundary, s + new,
                                               point)
@@ -1894,37 +1904,70 @@ def serve_lm(torch, results):
             step, _ = model.decode_tail(params, bnd, s, tail, point, s + new)
             check(torch.equal(step, ref_step),
                   f"split decode at {names[point]} != unsplit")
-    t1 = clock()
-    toks = ServeSession(model, params, sc).generate(batch, new)
-    gen_ms = (clock() - t1) * 1e3
-    check(toks.shape == (b, new), f"ServeSession tokens {toks.shape}")
-    session = dict(batch=b, prompt=s, tokens=new,
-                   prefill_ms=statistics.median(prefill_ms),
-                   generate_ms=gen_ms,
-                   per_token_ms=(gen_ms - statistics.median(prefill_ms))
-                   / (new - 1),
-                   split_points=[names[p] for p in LM_SPLIT_POINTS])
+
+
+def lm_session_phase(torch, model, params, points, what: str):
+    """(a) of steps 8 and 9: ``ServeSession`` at LM_SESSION (prefill,
+    median of 3, and greedy tokens), split against unsplit bitwise at
+    ``points``. Returns (session dict, the batch, the prefill's caches)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.api import batch_to
+    from repro_torch.serving.engine import ServeSession
+
+    cfg, names = model.cfg, model.decoupling_points()
+    b, s, new = LM_SESSION
+    batch = make_batch(cfg, b, s, seed=0)
+    tb = batch_to(batch, torch.device("cuda"))
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(3):
+            t1 = sync_clock(torch)
+            logits, caches = model.prefill(params, tb, s + new)
+            prefill_ms.append((sync_clock(torch) - t1) * 1e3)
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{what} prefill logits")
+    lm_split_equal(torch, model, params, tb, s, new, points)
+    t1 = sync_clock(torch)
+    toks = ServeSession(model, params, ServeConfig(
+        max_batch=b, max_seq_len=s + new)).generate(batch, new)
+    gen_ms = (sync_clock(torch) - t1) * 1e3
+    check(toks.shape == (b, new), f"{what} ServeSession tokens {toks.shape}")
+    pre = statistics.median(prefill_ms)
+    session = dict(batch=b, prompt=s, tokens=new, prefill_ms=pre,
+                   generate_ms=gen_ms, per_token_ms=(gen_ms - pre) / (new - 1),
+                   split_points=[names[p] for p in points])
     print(f"  (a) ServeSession batch {b}, prompt {s}, {new} greedy tokens "
-          f"in {gen_ms:.1f} ms (prefill {session['prefill_ms']:.2f} ms, "
+          f"in {gen_ms:.1f} ms (prefill {pre:.2f} ms, "
           f"{session['per_token_ms']:.2f} ms a decode step); split == "
           f"unsplit bitwise at {session['split_points']}")
+    return session, batch, caches
 
-    # (b) Continuous batching: batched against one-slot engines.
-    reqs = list(enumerate(lm_requests(cfg.vocab_size, LM_REQUESTS, seed=1)))
+
+def lm_engine_phase(torch, model, params, what: str):
+    """(b) of steps 8 and 9: LM_REQUESTS staggered requests on
+    LM_MAX_BATCH slots, each request's tokens, greedy and sampled, equal
+    to a one-slot engine's, and one 8-row decode's logits bitwise equal to
+    each request alone. Returns (engine dict, the requests)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+
+    reqs = list(enumerate(lm_requests(model.cfg.vocab_size, LM_REQUESTS,
+                                      seed=1)))
     esc = ServeConfig(max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)
     eng = ContinuousBatchingEngine(model, params, esc)
-    t1 = clock()
+    t1 = sync_clock(torch)
     batched = lm_run(eng, reqs)
-    eng_ms = (clock() - t1) * 1e3
+    eng_ms = (sync_clock(torch) - t1) * 1e3
     solo_engine = lambda: ContinuousBatchingEngine(  # noqa: E731
         model, params, ServeConfig(max_batch=1, max_seq_len=LM_SEQ))
-    lm_solo_equal(solo_engine, reqs, batched, "engine")
-    # Random weights make greedy decoding repeat a token, so the same
+    lm_solo_equal(solo_engine, reqs, batched, f"{what} engine")
+    # Random weights can make greedy decoding repeat a token, so the same
     # requests also sample (each from its own generator): a row that
     # rounded differently batched would draw other tokens from then on.
     sampled = lm_run(ContinuousBatchingEngine(model, params, esc), reqs,
                      temperature=LM_TEMPERATURE)
-    lm_solo_equal(solo_engine, reqs, sampled, "engine, sampled",
+    lm_solo_equal(solo_engine, reqs, sampled, f"{what} engine, sampled",
                   LM_TEMPERATURE)
     n_rows = check_rows_invariant(torch, model, params, reqs)
     n_tok = sum(len(v) for v in batched.values())
@@ -1942,141 +1985,340 @@ def serve_lm(torch, results):
           f"T={LM_TEMPERATURE} {engine['distinct_sampled']}); each "
           f"request's tokens, greedy and sampled, == a one-slot engine's; "
           f"decode logits of {n_rows} live rows == each alone, bitwise")
+    return engine, reqs
 
-    # (c) Streaming across the cut.
+
+def lm_plan_phase(torch, model, params, batch, point, calib_seq: int):
+    """(c) of steps 8 and 9, before the streams: ``build_edge_cloud_server``
+    over the three codecs (calibration timed), ``decide_streaming`` at
+    LM_BANDWIDTHS, and the stream kernels held against their plain
+    versions on real frames at ``point``. Returns (server, a dict of
+    the numbers)."""
+    from repro_torch.config import JaladConfig
+    from repro_torch.models.api import batch_to
+    from repro_torch.serving.edge_cloud import build_edge_cloud_server
+
+    cfg, names = model.cfg, model.decoupling_points()
     jc = JaladConfig(codec_choices=CODECS)
-    t1 = clock()
+    t1 = sync_clock(torch)
     server, _ = build_edge_cloud_server(
-        cfg, jc, calib_batches=1, calib_batch_size=2, seq_len=s,
+        cfg, jc, calib_batches=1, calib_batch_size=2, seq_len=calib_seq,
         params=params)
-    calib_s = clock() - t1
+    calib_s = sync_clock(torch) - t1
     print(f"  (c) build_edge_cloud_server: calibration over "
-          f"{len(names)} points x {len(jc.bits_choices)} widths x "
-          f"{len(CODECS)} codecs, batch 2 x {s} tokens, in {calib_s:.1f} s")
+          f"{len(server.engine.tables.points)} points x "
+          f"{len(jc.bits_choices)} widths x {len(CODECS)} codecs, batch 2 "
+          f"x {calib_seq} tokens, in {calib_s:.1f} s")
     decisions = {}
     for bw in LM_BANDWIDTHS:
         p = server.engine.decide_streaming(bw, expected_tokens=128.0)
-        decisions[bw] = _plan(p)
+        decisions[str(bw)] = _plan(p)
         where = names[p.point] if p.point >= 0 else "cloud"
         print(f"  (c) decide_streaming at {bw:.0e} B/s, 128 tokens: "
               f"{where} {p.bits} bits {p.codec or '-'} (predicted "
               f"{p.predicted_latency:.4f} s)")
+    s = batch["tokens"].shape[1]
     with torch.no_grad():
         prompt_b, _ = model.prefill_head(
-            params, batch_to({"tokens": batch["tokens"][:1]}, dev), s,
-            LM_STREAM_POINT)
+            params, batch_to({"tokens": batch["tokens"][:1]},
+                             torch.device("cuda")), s, point)
     frames = (prompt_b[0, :LM_MAX_BATCH].reshape(LM_MAX_BATCH, 1, 1, -1),
               prompt_b)
     worst, kernel_ms = check_stream_kernels(torch, frames)
-    print(f"  stream-shape kernels == plain versions (max diff {worst}); "
-          f"8-bit times on {kernel_ms['shape']}: " + ", ".join(
+    print(f"  stream-shape kernels (rows of {cfg.d_model}) == plain "
+          f"versions (max diff {worst}); 8-bit times on "
+          f"{kernel_ms['shape']}: " + ", ".join(
               f"{k} {v:.4f} ms" for k, v in kernel_ms.items()
               if k != "shape"))
-    ssc = ServeConfig(max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)
-    enc_of = {"bitpack": "fused_encode", "huffman": "huffman_pack",
-              "perchannel": "pc_encode"}
-    dec_of = {"bitpack": "fused_decode", "huffman": "fused_decode",
-              "perchannel": "pc_decode"}
+    return server, dict(calibration_s=calib_s, decisions=decisions,
+                        kernel_max_diff=worst, kernel_ms=kernel_ms)
+
+
+def lm_stream_phase(torch, make, model, point, reqs, codec, counts,
+                    solo: bool):
+    """(c) and (e) of steps 8 and 9 for one codec: ``make(max_batch)``'s
+    session pinned at ``point`` serves ``reqs`` (sampled), the counters
+    set to 0 around every step: one encode and one decode launch for the
+    step's group plus one of each a join (added into ``counts``); with
+    ``solo``, each request's tokens equal a one-slot session's; then the
+    per-phase times and ``torch.profiler`` over LM_PROFILE_STEPS steps.
+    Returns the stream's dict."""
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.serving.scheduler import GenRequest
+
+    names = model.decoupling_points()
+    sess = make(LM_MAX_BATCH)
+    for i, (prompt, n_new, arrival) in reqs:
+        sess.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=n_new,
+                               temperature=LM_TEMPERATURE, arrival=arrival))
+    steps = grouped_steps = 0
+    t1 = sync_clock(torch)
+    while sess.queue or sess.num_active:
+        joins, groups = len(sess.events), len(sess.encode_groups)
+        qops.reset_launch_counts()
+        sess.step()
+        got = qops.launch_counts()
+        n_join = sum(1 for e in sess.events[joins:] if e[0] == "join")
+        grouped = len(sess.encode_groups) - groups
+        want = dict.fromkeys(got, 0)
+        want[ENCODE_KERNEL[codec]] += n_join + grouped
+        want[DECODE_KERNEL[codec]] += n_join + grouped
+        check(grouped <= 1 and got == want,
+              f"{model.cfg.arch_id} stream {codec} step {sess.step_count}: "
+              f"launches { {k: v for k, v in got.items() if v} }, expected "
+              f"{ {k: v for k, v in want.items() if v} } ({n_join} joins, "
+              f"{grouped} grouped encode)")
+        for k, v in got.items():
+            counts[k] += v
+        steps += 1
+        grouped_steps += grouped
+    wall_ms = (sync_clock(torch) - t1) * 1e3
+    toks = {r.uid: r.result.tolist() for r in sess.completed}
+    if solo:
+        lm_solo_equal(lambda: make(1), reqs, toks,
+                      f"{model.cfg.arch_id} stream {codec}", LM_TEMPERATURE)
+    timed = timed_stream_run(torch, make(LM_MAX_BATCH), reqs, LM_TEMPERATURE)
+    check(timed["tokens"] == toks,
+          f"{model.cfg.arch_id} stream {codec}: the timed run's tokens "
+          "differ")
+    med = {k: statistics.median(timed[k])
+           for k in ("join", "head", "encode", "decode", "tail")}
+    prof = profile_stream_steps(torch, make(LM_MAX_BATCH),
+                                model.cfg.vocab_size)
+    out = dict(plan=dict(point=names[point], bits=LM_STREAM_BITS),
+               steps=steps, grouped_steps=grouped_steps,
+               tokens=sess.tokens_out, wall_ms=wall_ms,
+               tokens_per_s=sess.tokens_out / wall_ms * 1e3,
+               bytes_sent=sess.bytes_sent, header_bytes=sess.header.nbytes,
+               frame_bytes=statistics.mean(timed["frame_bytes"]),
+               kv_bytes_ratio=sess.kv_bytes_ratio, ms=med, profile=prof,
+               distinct_tokens=[len(set(v)) for _, v in sorted(toks.items())])
+    kv = ("" if sess.kv_bytes_ratio is None
+          else f"int8 KV {sess.kv_bytes_ratio:.4f} of bf16; ")
+    print(f"  (c) {codec:10s} at {names[point]}/{LM_STREAM_BITS} bits: "
+          f"{steps} steps ({grouped_steps} grouped encodes), "
+          f"{sess.tokens_out} tokens in {wall_ms:.1f} ms "
+          f"({out['tokens_per_s']:.1f} tokens/s); a token: head "
+          f"{med['head']:.3f} ms, encode {med['encode']:.3f}, decode "
+          f"{med['decode']:.3f}, tail {med['tail']:.3f}; a join "
+          f"{med['join']:.2f} ms; {out['frame_bytes']:.1f} B a frame; {kv}"
+          f"sampled tokens (distinct a request {out['distinct_tokens']})"
+          + (" == alone" if solo else ""))
+    print(f"  (e)   profiled ({LM_MAX_BATCH} active slots, "
+          f"{LM_PROFILE_STEPS} steps): {prof['step_ms']:.2f} ms a step, "
+          f"{prof['kernels_per_step']:.0f} device kernels a step, "
+          f"{prof['device_ms_per_step']:.3f} ms of device time (busy "
+          f"{prof['busy_share']:.1%}, idle {1 - prof['busy_share']:.1%})")
+    return out
+
+
+def lm_small_check(torch, cfg, rtol: float) -> float:
+    """``cfg`` reduced, in float32, card against CPU: forward logits within
+    ``rtol`` of their scale and equal greedy tokens. Returns the share."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.api import batch_to, build_model
+    from repro_torch.models.bridge import params_to
+    from repro_torch.serving.engine import ServeSession
+
+    small = cfg.reduced()
+    sm = build_model(small)
+    cpu_p = sm.init(0, "cpu")
+    card_p = params_to(cpu_p, torch.device("cuda"))
+    sb = make_batch(small, 2, 12, seed=3)
+    with torch.no_grad():
+        lc = sm.forward(card_p, batch_to(sb, torch.device("cuda"))).cpu()
+        lh = sm.forward(cpu_p, batch_to(sb, "cpu"))
+    rel = float((lc - lh).abs().max() / lh.abs().max())
+    check(rel <= rtol, f"reduced {cfg.arch_id} card/cpu logits {rel:.2e}")
+    ssc = ServeConfig(max_batch=2, max_seq_len=24)
+    tc = ServeSession(sm, card_p, ssc).generate(sb, 8)
+    th = ServeSession(sm, cpu_p, ssc).generate(sb, 8)
+    check((tc == th).all(), f"reduced {cfg.arch_id} card/cpu tokens")
+    print(f"  reduced {cfg.arch_id} f32: card vs CPU logits {rel:.2e} of "
+          f"scale (rtol {rtol}), greedy tokens equal")
+    return rel
+
+
+def load_lm(torch, arch: str):
+    """Full-width ``arch`` with random weights from seed 0 on the card."""
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+
+    model = build_model(get_config(arch))
+    t0 = time.perf_counter()
+    params = model.init(0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    return model, params, time.perf_counter() - t0
+
+
+def serve_lm(torch, results):
+    """Step 8: full-width olmo-1b (bfloat16, random weights from seed 0)
+    through ServeSession, the continuous-batching engine and token
+    streaming across the JALAD cut with each codec."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core.decoupler import DecoupledPlan
+    from repro_torch.kernels.quantize import ops as qops
+
+    model, params, init_s = load_lm(torch, LM_ARCH)
+    cfg = model.cfg
+    print(f"LM: {cfg.arch_id} ({model.param_count():,} parameters, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}); "
+          f"weights from seed 0 in {init_s:.1f} s")
+    out = dict(card=card_line(), arch=cfg.arch_id,
+               params=model.param_count(), init_s=init_s)
+    session, batch, _ = lm_session_phase(torch, model, params,
+                                         LM_SPLIT_POINTS, cfg.arch_id)
+    engine, reqs = lm_engine_phase(torch, model, params, cfg.arch_id)
+    server, plan_out = lm_plan_phase(torch, model, params, batch,
+                                     LM_STREAM_POINT, LM_SESSION[1])
     counts = dict.fromkeys(qops.launch_counts(), 0)
     streams = {}
     for codec in CODECS:
         plan = DecoupledPlan(LM_STREAM_POINT, LM_STREAM_BITS, 0.0, 0.0, 0.0,
                              codec)
         runner = server.engine.make_runner(params, plan)
-        sess = runner.stream_session(ssc)
-        for i, (prompt, n_new, arrival) in reqs:
-            sess.submit(GenRequest(uid=i, tokens=prompt,
-                                   max_new_tokens=n_new,
-                                   temperature=LM_TEMPERATURE,
-                                   arrival=arrival))
-        steps = grouped_steps = 0
-        t1 = clock()
-        while sess.queue or sess.num_active:
-            joins, groups = len(sess.events), len(sess.encode_groups)
-            qops.reset_launch_counts()
-            sess.step()
-            got = qops.launch_counts()
-            n_join = sum(1 for e in sess.events[joins:] if e[0] == "join")
-            grouped = len(sess.encode_groups) - groups
-            want = dict.fromkeys(got, 0)
-            want[enc_of[codec]] += n_join + grouped
-            want[dec_of[codec]] += n_join + grouped
-            check(grouped <= 1 and got == want,
-                  f"stream {codec} step {sess.step_count}: launches "
-                  f"{ {k: v for k, v in got.items() if v} }, expected "
-                  f"{ {k: v for k, v in want.items() if v} } ({n_join} "
-                  f"joins, {grouped} grouped encode)")
-            for k, v in got.items():
-                counts[k] += v
-            steps += 1
-            grouped_steps += grouped
-        wall_ms = (clock() - t1) * 1e3
-        toks = {r.uid: r.result.tolist() for r in sess.completed}
-        lm_solo_equal(lambda: runner.stream_session(ServeConfig(
-            max_batch=1, max_seq_len=LM_SEQ)), reqs, toks,
-            f"stream {codec}", LM_TEMPERATURE)
-        timed = timed_stream_run(torch, runner.stream_session(ssc), reqs,
-                                 LM_TEMPERATURE)
-        check(timed["tokens"] == toks,
-              f"stream {codec}: the timed run's tokens differ")
-        med = {k: statistics.median(timed[k])
-               for k in ("join", "head", "encode", "decode", "tail")}
-        prof = profile_stream_steps(torch, runner.stream_session(ssc),
-                                    cfg.vocab_size)
-        streams[codec] = dict(
-            plan=dict(point=names[LM_STREAM_POINT], bits=LM_STREAM_BITS),
-            steps=steps, grouped_steps=grouped_steps,
-            tokens=sess.tokens_out, wall_ms=wall_ms,
-            tokens_per_s=sess.tokens_out / wall_ms * 1e3,
-            bytes_sent=sess.bytes_sent, header_bytes=sess.header.nbytes,
-            frame_bytes=statistics.mean(timed["frame_bytes"]),
-            kv_bytes_ratio=sess.kv_bytes_ratio, ms=med, profile=prof,
-            distinct_tokens=[len(set(v)) for _, v in sorted(toks.items())])
-        print(f"  (c) {codec:10s} at {names[LM_STREAM_POINT]}/"
-              f"{LM_STREAM_BITS} bits: {steps} steps ({grouped_steps} "
-              f"grouped encodes), {sess.tokens_out} tokens in "
-              f"{wall_ms:.1f} ms ({streams[codec]['tokens_per_s']:.1f} "
-              f"tokens/s); a token: head {med['head']:.3f} ms, encode "
-              f"{med['encode']:.3f}, decode {med['decode']:.3f}, tail "
-              f"{med['tail']:.3f}; a join {med['join']:.2f} ms; "
-              f"{streams[codec]['frame_bytes']:.1f} B a frame; int8 KV "
-              f"{sess.kv_bytes_ratio:.4f} of bf16; sampled tokens (distinct "
-              f"a request {streams[codec]['distinct_tokens']}) == alone")
-        print(f"      profiled ({LM_MAX_BATCH} active slots, "
-              f"{LM_PROFILE_STEPS} steps): {prof['step_ms']:.2f} ms a step, "
-              f"{prof['kernels_per_step']:.0f} device kernels a step, "
-              f"{prof['device_ms_per_step']:.3f} ms of device time "
-              f"(busy {prof['busy_share']:.1%}, idle "
-              f"{1 - prof['busy_share']:.1%})")
+        streams[codec] = lm_stream_phase(
+            torch, lambda n: runner.stream_session(ServeConfig(
+                max_batch=n, max_seq_len=LM_SEQ)),
+            model, LM_STREAM_POINT, reqs, codec, counts, solo=True)
     for codec in CODECS:
-        for name in (enc_of[codec], dec_of[codec]):
+        for name in (ENCODE_KERNEL[codec], DECODE_KERNEL[codec]):
             check(counts[name] > 0, f"{name} never launched on the stream")
     check(counts["huffman_host_route"] == 0, "a Huffman frame took the host")
-
-    # The same path at a small size, card against CPU: reduced olmo-1b in
-    # float32, its prefill logits and greedy tokens.
-    small = get_config(LM_ARCH).reduced()
-    sm = build_model(small)
-    cpu_p = sm.init(0, "cpu")
-    card_p = params_to(cpu_p, dev)
-    sb = make_batch(small, 2, 12, seed=3)
-    with torch.no_grad():
-        lc = sm.forward(card_p, batch_to(sb, dev)).cpu()
-        lh = sm.forward(cpu_p, batch_to(sb, "cpu"))
-    rel = float((lc - lh).abs().max() / lh.abs().max())
-    check(rel <= LM_SMALL_RTOL, f"reduced LM card/cpu logits {rel:.2e}")
-    ssc2 = ServeConfig(max_batch=2, max_seq_len=24)
-    tc = ServeSession(sm, card_p, ssc2).generate(sb, 8)
-    th = ServeSession(sm, cpu_p, ssc2).generate(sb, 8)
-    check((tc == th).all(), "reduced LM card/cpu tokens")
-    print(f"  reduced {LM_ARCH} f32: card vs CPU logits {rel:.2e} of scale "
-          f"(rtol {LM_SMALL_RTOL}), greedy tokens equal; lm stream "
-          f"launches {({k: v for k, v in counts.items() if v})}")
-    out.update(session=session, engine=engine, calibration_s=calib_s,
-               decisions={str(k): v for k, v in decisions.items()},
-               kernel_max_diff=worst, kernel_ms=kernel_ms, streams=streams,
-               launches=counts, small_rel=rel)
+    rel = lm_small_check(torch, cfg, LM_SMALL_RTOL)
+    print(f"  lm stream launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    out.update(session=session, engine=engine, streams=streams,
+               launches=counts, small_rel=rel, **plan_out)
     results["lm"] = out
+    return counts
+
+
+def rnn_chunked_vs_sequential(torch, model, params) -> float:
+    """zamba2's 512-token prefill (chunked SSD) against the sequential scan
+    of the same tokens (511-token prefill + one decode step): the next-token
+    logits' largest difference as a share of their scale."""
+    import numpy as np
+
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        1, model.cfg.vocab_size, size=(1, RNN_CHUNK_PROMPT)),
+        dtype=torch.int64, device=torch.device("cuda"))
+    n = RNN_CHUNK_PROMPT
+    with torch.no_grad():
+        chunked, _ = model.prefill(params, {"tokens": toks}, n + 1)
+        _, caches = model.prefill(params, {"tokens": toks[:, :-1]}, n + 1)
+        seq, _ = model.decode_step(params, toks[:, -1:], n - 1, caches)
+    a, b = chunked[:, -1].float(), seq[:, -1].float()
+    check(bool(torch.isfinite(a).all()), "chunked prefill logits")
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def compress_state_errors(torch, caches, bits: int) -> dict:
+    """``compress_state`` on full-width caches: for each leaf name, the
+    largest |x - q(x)| as a share of that leaf's range (max - min); every
+    share must be within half a quantization step (plus bfloat16's
+    rounding of a bf16 leaf's dequantized value)."""
+    from repro_torch.core.decoupler import compress_state
+
+    with torch.no_grad():
+        cq = compress_state(caches, bits)
+    worst = {}
+    for c, q in zip(caches, cq):
+        for k, v in c.items():
+            if not v.is_floating_point():
+                check(torch.equal(v, q[k]), f"compress_state moved int {k}")
+                continue
+            vf, qf = v.float(), q[k].float()
+            rng = float(vf.max() - vf.min())
+            err = float((vf - qf).abs().max()) / rng if rng > 0 else 0.0
+            worst[k] = max(worst.get(k, 0.0), err)
+            tol = 0.5 / ((1 << bits) - 1) + (
+                2.0 ** -8 * float(vf.abs().max()) / rng
+                if v.dtype == torch.bfloat16 and rng > 0 else 0.0)
+            check(err <= tol * (1 + 1e-3),
+                  f"compress_state {k}: {err:.3e} of the range > {tol:.3e}")
+    return worst
+
+
+def serve_recurrent_lm(torch, results):
+    """Step 9: full-width zamba2-2.7b and xlstm-1.3b (bfloat16, full depth,
+    random weights from seed 0) through the phases of step 8, with
+    zamba2's chunked SSD against the sequential scan and compress_state on
+    the prefill's caches."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core.decoupler import DecoupledPlan
+    from repro_torch.kernels.quantize import ops as qops
+
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    out_all = {}
+    for arch, spec in RNN_ARCHS.items():
+        model, params, init_s = load_lm(torch, arch)
+        cfg, names, point = model.cfg, model.decoupling_points(), spec["point"]
+        print(f"RNN: {arch} ({model.param_count():,} parameters, "
+              f"{len(names)} points, pattern {cfg.block_pattern[:8]}..., "
+              f"shared attention every {cfg.shared_attention_every or '-'}, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}); "
+              f"weights from seed 0 in {init_s:.1f} s")
+        out = dict(card=card_line(), arch=arch, params=model.param_count(),
+                   init_s=init_s, point=names[point])
+        session, batch, caches = lm_session_phase(torch, model, params,
+                                                  spec["split"], arch)
+        worst_q = compress_state_errors(torch, caches, LM_STREAM_BITS)
+        del caches
+        print(f"  (d) compress_state at {LM_STREAM_BITS} bits on the "
+              f"prefill's caches: largest error a leaf, share of its range "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst_q.items()))
+              + f" (half a step: {0.5 / 255:.2e})")
+        chunk_rel = None
+        if cfg.shared_attention_every:
+            chunk_rel = rnn_chunked_vs_sequential(torch, model, params)
+            check(chunk_rel <= RNN_CHUNK_RTOL,
+                  f"{arch} chunked vs sequential {chunk_rel:.3e}")
+            print(f"  (a) {RNN_CHUNK_PROMPT}-token chunked prefill vs the "
+                  f"sequential scan: {chunk_rel:.2e} of the logits' scale "
+                  f"(tolerance {RNN_CHUNK_RTOL})")
+        session.update(chunked_vs_sequential=chunk_rel,
+                       compress_state_8bit=worst_q)
+        engine, reqs = lm_engine_phase(torch, model, params, arch)
+        server, plan_out = lm_plan_phase(torch, model, params, batch, point,
+                                         RNN_CALIB_SEQ)
+        kv_bits = RNN_CLOUD_KV_BITS[arch]
+        if kv_bits == 0:
+            plan = DecoupledPlan(point, LM_STREAM_BITS, 0.0, 0.0, 0.0,
+                                 "bitpack")
+            ssc = ServeConfig(max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)
+            try:
+                server.engine.make_runner(params, plan).stream_session(ssc)
+            except RuntimeError as e:
+                print(f"  (c) int8 cloud KV refused as expected: {e}")
+            else:
+                check(False, f"{arch}: int8 tail KV passed the bytes check")
+        streams = {}
+        for codec in CODECS:
+            plan = DecoupledPlan(point, LM_STREAM_BITS, 0.0, 0.0, 0.0, codec)
+            runner = server.engine.make_runner(params, plan)
+            streams[codec] = lm_stream_phase(
+                torch, lambda n: runner.stream_session(ServeConfig(
+                    max_batch=n, max_seq_len=LM_SEQ), cloud_kv_bits=kv_bits),
+                model, point, reqs, codec, counts,
+                solo=codec == RNN_SOLO_CODEC)
+        for codec in CODECS:
+            for name in (ENCODE_KERNEL[codec], DECODE_KERNEL[codec]):
+                check(counts[name] > 0,
+                      f"{name} never launched on the {arch} stream")
+        check(counts["huffman_host_route"] == 0,
+              "a Huffman frame took the host")
+        rel = lm_small_check(torch, cfg, RNN_SMALL_RTOL)
+        out.update(session=session, engine=engine, streams=streams,
+                   small_rel=rel, **plan_out)
+        out_all[arch] = out
+        del model, params, server, runner
+        torch.cuda.empty_cache()
+    print(f"  recurrent lm stream launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    results["lm_recurrent"] = out_all
     return counts
 
 
@@ -2147,8 +2389,10 @@ def main(argv=None) -> int:
     fleet = step("fleet", serve_fleet, params)
     three = step("three-tier", serve_three_tier, params)
     lm = step("lm serving", serve_lm)
+    rnn = step("recurrent lm serving", serve_recurrent_lm)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
-             "threelaunch": k6_path, "three_tier": three, "lm_stream": lm}
+             "threelaunch": k6_path, "three_tier": three, "lm_stream": lm,
+             "rnn_stream": rnn}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

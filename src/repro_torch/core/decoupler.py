@@ -6,8 +6,9 @@ latency model and planner into the paper's decision procedure.
 The three-tier split (device -> edge server -> cloud) is here too:
 :class:`TriDecoupledRunner` and the engine's ``tri_space`` /
 ``decide_tri``; so is token streaming: the engine's ``stream_terms`` /
-``decide_streaming`` and ``DecoupledRunner.stream_session``. Not ported:
-``run_simulated``, ``compress_state`` and the meshed cloud.
+``decide_streaming`` and ``DecoupledRunner.stream_session``; so is
+``compress_state``, the recurrent-state extension. Not ported:
+``run_simulated`` and the meshed cloud.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core.ilp import ILPProblem, solve
 from repro_torch.core.latency import LatencyModel
 from repro_torch.core.planner import PlanSpace, StreamPlanTerms
 from repro_torch.core.predictor import PredictorTables
+from repro_torch.core.quantization import quantize_dequantize
 from repro_torch.core.tri_planner import TriPlanSpace
 from repro_torch.device import tensor_device
 from repro_torch.models.api import Model, batch_to
@@ -234,6 +236,26 @@ class TriDecoupledRunner:
         blob1, extras = self.device_step(batch)
         blob2, extras = self.edge_server_step(blob1, extras)
         return self.cloud_step(blob2, extras), blob1.nbytes, blob2.nbytes
+
+
+# ---------------------------------------------------------------------------
+# Recurrent-state compression (SSM/hybrid decode across the cut)
+# ---------------------------------------------------------------------------
+
+
+def compress_state(caches, bits: int):
+    """JALAD extension for recurrent decode: the state that crosses the cut
+    is itself quantized, each floating leaf with its own min-max range
+    (:func:`quantize_dequantize`), back in the leaf's dtype. Integer leaves
+    (int8 KV codes) pass through. Returns a new tree of the same
+    structure (dicts, lists, tuples)."""
+    if isinstance(caches, dict):
+        return {k: compress_state(v, bits) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(compress_state(v, bits) for v in caches)
+    if caches.is_floating_point():
+        return quantize_dequantize(caches, bits).to(caches.dtype)
+    return caches
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Serving launcher of the port: batched and continuous-batching
-generation for the dense decoders, and JALAD edge-cloud serving of the CNN
-testbed (synchronous or pipelined), on the CUDA card unless ``--device
-cpu`` is given.
+generation for the decoders (dense, ssm and hybrid families: olmo-1b,
+qwen3-8b, yi-6b, granite-34b, xlstm-1.3b, zamba2-2.7b), and JALAD
+edge-cloud serving of the CNN testbed (synchronous or pipelined), on the
+CUDA card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --tokens 16                       # one-shot batched generation
@@ -9,6 +10,8 @@ cpu`` is given.
       --continuous --requests 6         # continuous-batching scheduler
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --reduced --continuous --device cpu   # small CPU run
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --continuous --requests 6         # Mamba2 hybrid (or xlstm-1.3b)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --jalad --codec huffman --bandwidth 300e3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
@@ -33,8 +36,9 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 
 def serve_lm(args) -> int:
-    """KV-cache generation with a dense decoder: one batched session, or
-    the continuous-batching engine (``--continuous``)."""
+    """KV-cache (and recurrent-state) generation with a decoder: one
+    batched session, or the continuous-batching engine
+    (``--continuous``)."""
     from repro_torch.models.api import build_model
     from repro_torch.serving.engine import ServeSession
 

@@ -1,2 +1,3 @@
 """Models of the port behind the ``Model`` API: the paper's CNN testbed
-and the dense decoder family (``transformer``, ``blocks``, ``layers``)."""
+and the decoder families dense, ssm and hybrid (``transformer``,
+``blocks``, ``layers``)."""

@@ -2,8 +2,8 @@
 :class:`Model` with the reference's decoupling surface (``forward``,
 ``decoupling_points``, ``run_head``, ``run_heads``, ``run_segment``,
 ``run_tail``, ``per_point_fmacs``, ``boundary_bytes``) for the paper's CNN
-testbed and the dense decoder family, which also serves (``prefill``,
-``decode_step``, ``init_caches``) and streams across a cut
+testbed and the decoder families (dense, ssm, hybrid), which also serve
+(``prefill``, ``decode_step``, ``init_caches``) and stream across a cut
 (``prefill_head`` / ``prefill_tail``, ``decode_head`` / ``decode_tail``,
 ``init_head_caches`` / ``init_tail_caches``).
 
@@ -15,7 +15,8 @@ are moved to the parameters' device by :func:`batch_to`).
 One difference from the reference: a decoder's ``run_head`` returns the
 boundary tensor alone. Text positions are ``arange`` over the sequence,
 which the tail rebuilds from the boundary's shape, so there are no extras
-to carry. Other model families are not ported yet and raise.
+to carry. Other model families (moe, vlm, audio) are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.init import materialize
+from repro_torch.models.layers.mamba2 import mamba_dims
 
 # Families the port builds; the others raise in build_model.
-PORTED_FAMILIES = ("cnn", "dense")
+PORTED_FAMILIES = ("cnn", "dense", "ssm", "hybrid")
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -64,6 +66,17 @@ class Model:
             return int(np.prod(tree.shape))
 
         return count(self.specs)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.num_experts:
+            per_expert = cfg.d_model * cfg.moe_d_ff_ * 3
+            moe_layers = tf_lib.default_pattern(cfg).count("e")
+            return total - moe_layers * (
+                cfg.num_experts - cfg.experts_per_token) * per_expert
+        return total
 
     # ------------------------------------------------------------ entries
     def forward(self, params, batch) -> torch.Tensor:
@@ -215,13 +228,36 @@ class Model:
 
 
 def _block_fmacs_per_token(cfg: ModelConfig) -> List[float]:
-    """Per-token FMACs of each dense block (weights touched once a token):
-    the q/k/v and output projections plus the SwiGLU MLP."""
+    """Per-token FMACs of each block (weights touched once a token), in
+    decoupling-point order: a shared attention block's after every
+    ``shared_attention_every`` blocks."""
     d, hd = cfg.d_model, cfg.head_dim_
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    attn = d * (h + 2 * kv) * hd + h * hd * d
+    out: List[float] = []
+    attn = d * (h + 2 * kv) * hd + h * hd * d       # qkv + out proj
     dense_mlp = 3.0 * d * cfg.d_ff
-    return [attn + dense_mlp for _ in tf_lib.default_pattern(cfg)]
+    for kind in tf_lib.default_pattern(cfg):
+        if kind == "m":
+            dims = mamba_dims(cfg)
+            out.append(d * (2 * dims.d_inner + 2 * dims.state + dims.heads)
+                       + dims.d_inner * d)
+        elif kind == "l":
+            di = cfg.ssm_expand * d
+            out.append(d * 2 * di + 3 * di * di + di * d)
+        elif kind == "s":
+            out.append(4 * d * d + 4 * d * (d // max(cfg.num_heads, 1))
+                       + 2 * d * int(4 / 3 * d))
+        else:
+            out.append(attn + dense_mlp)
+    if cfg.shared_attention_every:
+        shared_cost = attn + dense_mlp
+        merged: List[float] = []
+        for i, c in enumerate(out):
+            merged.append(c)
+            if (i + 1) % cfg.shared_attention_every == 0:
+                merged.append(shared_cost)
+        out = merged
+    return out
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -229,7 +265,8 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"repro_torch: model family {cfg.family!r} is not yet ported "
             "(ROADMAP.md queue 1, item 4); the CNN testbed "
-            "(vgg16/19, resnet50/101) and the dense decoders are")
+            "(vgg16/19, resnet50/101) and the dense, ssm and hybrid "
+            "decoders are")
     if cfg.family == "cnn":
         return Model(cfg=cfg, specs=cnn_lib.cnn_param_specs(cfg))
     return Model(cfg=cfg, specs=tf_lib.param_specs(cfg))

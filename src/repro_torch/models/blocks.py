@@ -1,15 +1,24 @@
-"""Block-level composition of the dense decoder.
+"""Block-level composition.
 
 Every architecture is a sequence of *segments*; a segment is a contiguous
 run of identical blocks whose parameters are stacked along a leading layer
 axis (the reference's layout, so a reference parameter tree bridges in
-as it is). The port runs block kind ``'d'``, the dense decoder block
-(attention + SwiGLU) of the llama family; the other kinds of the
-reference raise.
+as it is). Block kinds the port runs:
+
+  'd'  dense decoder block   (attn + SwiGLU)           — llama family
+  'm'  Mamba2 block                                    — zamba2
+  'l'  mLSTM block                                     — xlstm
+  's'  sLSTM block                                     — xlstm
+  'A'  shared attention block (zamba2; one parameter set, many invocations)
+
+The reference's other kinds ('e', 'E', 'c') raise.
 
 Each kind provides ``block_spec`` (ParamSpec tree), ``block_apply_seq``
 (full sequence; returns (x, cache_entry)) and ``block_apply_decode`` (one
-token a row; returns (x, cache_entry), the entry updated in place).
+token a row; returns (x, cache_entry), the entry updated in place: an
+attention block writes each live row's KV at its position, a recurrent
+block overwrites each live row's state and leaves the other rows' as they
+were).
 """
 from __future__ import annotations
 
@@ -19,19 +28,21 @@ import torch
 
 from repro_torch.config.types import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import mamba2 as mamba_lib
+from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.mlp import apply_swiglu, swiglu_spec
 from repro_torch.models.layers.norms import apply_norm, norm_spec
 
 # The reference's other block kinds, none of them ported yet.
 _UNPORTED = {
     "e": "the MoE decoder block (moe family)",
-    "m": "the Mamba2 block (ssm / hybrid families)",
-    "l": "the mLSTM block (ssm family)",
-    "s": "the sLSTM block (ssm family)",
-    "A": "the shared attention block (hybrid family)",
     "E": "the encoder block (audio family)",
     "c": "the cross-attention decoder block (audio family)",
 }
+
+
+_ATTN = ("d", "A")          # attention + SwiGLU; 'A' shares its weights
+_RECURRENT = {"m": "mamba", "l": "mlstm", "s": "slstm"}   # kind -> params key
 
 
 def _check_kind(kind: str) -> None:
@@ -40,7 +51,7 @@ def _check_kind(kind: str) -> None:
             f"repro_torch: block kind {kind!r}, {_UNPORTED[kind]}, is not "
             "ported yet (ROADMAP.md queue 1, item 4: the LM stack's other "
             "families)")
-    if kind != "d":
+    if kind not in _ATTN and kind not in _RECURRENT:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -66,6 +77,15 @@ class DecodeContext(NamedTuple):
 def block_spec(kind: str, cfg: ModelConfig):
     _check_kind(kind)
     d, dt_ = cfg.d_model, cfg.param_dtype
+    if kind == "m":
+        return {"ln": norm_spec(cfg.norm_kind, d, dt_),
+                "mamba": mamba_lib.mamba2_spec(cfg)}
+    if kind == "l":
+        return {"ln": norm_spec(cfg.norm_kind, d, dt_),
+                "mlstm": xlstm_lib.mlstm_spec(cfg)}
+    if kind == "s":
+        return {"ln": norm_spec(cfg.norm_kind, d, dt_),
+                "slstm": xlstm_lib.slstm_spec(cfg)}
     return {
         "ln1": norm_spec(cfg.norm_kind, d, dt_),
         "attn": attn_lib.attention_spec(cfg),
@@ -111,6 +131,15 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                      dtype, device=None):
     """Zero cache entry for ONE block of this kind (unstacked)."""
     _check_kind(kind)
+    if kind == "m":
+        return mamba_lib.init_mamba_state(cfg, batch, dtype,
+                                          device)._asdict()
+    if kind == "l":
+        return xlstm_lib.init_mlstm_state(cfg, batch, dtype,
+                                          device)._asdict()
+    if kind == "s":
+        return xlstm_lib.init_slstm_state(cfg, batch, dtype,
+                                          device)._asdict()
     return _kv_cache_entry(cfg, batch, cache_len, dtype, device)
 
 
@@ -123,6 +152,10 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
                     cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
     """Returns (x_new, cache_entry_or_None)."""
     _check_kind(kind)
+    if kind in _RECURRENT:
+        h = apply_norm(cfg.norm_kind, params["ln"], x)
+        y, state = _recurrent_seq(kind, params[_RECURRENT[kind]], h, cfg)
+        return x + y, state._asdict() if ctx.cache_len else None
     s = x.shape[1]
     h = apply_norm(cfg.norm_kind, params["ln1"], x)
     q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.positions, cfg)
@@ -148,6 +181,17 @@ def _build_kv_cache(k, v, s, cache_len, cfg: ModelConfig):
     return {"k": kc, "v": vc}
 
 
+def _recurrent_seq(kind: str, params, h: torch.Tensor, cfg: ModelConfig):
+    """A recurrent layer over a sequence: (output, final state). Mamba2's
+    is the reference's ``_mamba_seq_with_state`` (chunked SSD on a length
+    of whole chunks past one, sequential otherwise)."""
+    if kind == "m":
+        return mamba_lib.mamba2_seq(params, h, cfg)
+    if kind == "l":
+        return xlstm_lib.apply_mlstm(params, h, cfg)
+    return xlstm_lib.apply_slstm(params, h, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Single-token decode
 # ---------------------------------------------------------------------------
@@ -157,8 +201,10 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
                        ctx: DecodeContext, cfg: ModelConfig
                        ) -> Tuple[torch.Tensor, Any]:
     """x: (B, 1, d). Returns (x_new, cache), the cache updated in place at
-    each live row's position."""
+    each live row's position (a recurrent state: each live row's)."""
     _check_kind(kind)
+    if kind in _RECURRENT:
+        return _recurrent_decode(kind, params, x, cache, ctx, cfg)
     h = apply_norm(cfg.norm_kind, params["ln1"], x)
     q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.pos[:, None], cfg)
     if cfg.kv_cache_bits == 8:
@@ -177,3 +223,29 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
     x = x + attn_lib.attn_output(params["attn"], out)
     h2 = apply_norm(cfg.norm_kind, params["ln2"], x)
     return x + apply_swiglu(params["mlp"], h2), cache
+
+
+def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,
+                      ctx: DecodeContext, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, Any]:
+    """One token through a recurrent block. A recurrent state has no
+    position to mask by, so rows whose ``live`` flag is off keep every
+    leaf (the conv window and ``m`` included) exactly as it was."""
+    h = apply_norm(cfg.norm_kind, params["ln"], x)
+    p = params[_RECURRENT[kind]]
+    if kind == "m":
+        y, state = mamba_lib.decode_mamba2(
+            p, h, mamba_lib.MambaState(**cache), cfg)
+    elif kind == "l":
+        y, state = xlstm_lib.apply_mlstm(
+            p, h, cfg, xlstm_lib.MLSTMState(**cache))
+    else:
+        y, state = xlstm_lib.apply_slstm(
+            p, h, cfg, xlstm_lib.SLSTMState(**cache))
+    for k, new in state._asdict().items():
+        buf = cache[k]
+        if ctx.live is not None:
+            keep = ctx.live.reshape((-1,) + (1,) * (new.ndim - 1))
+            new = torch.where(keep, new, buf)
+        buf.copy_(new)
+    return x + y, cache

@@ -1,12 +1,20 @@
-"""Dense decoder assembly: segment plan, parameter specs, the full-sequence
-forward (prefill), single-token decode, and the token-level head/tail
-split that runs the JALAD cut inside the decode loop.
+"""Decoder assembly (the dense, ssm and hybrid families): segment plan,
+parameter specs, the full-sequence forward (prefill), single-token decode,
+and the token-level head/tail split that runs the JALAD cut inside the
+decode loop.
 
 Text-only: positions are ``arange`` over the sequence, so a boundary
 carries everything the tail needs. Each decode step takes one position a
 row (``pos`` of shape ``(B,)``), so one batched call advances slots that
 sit at different positions; the reference vmaps batch-1 decodes instead.
 Caches are updated in place.
+
+A hybrid model (zamba2) invokes ONE shared attention block ``'A'`` after
+every ``shared_attention_every`` blocks: its segments hold no parameters
+(``{}``), every invocation reads ``params["shared_attn"]`` and keeps its
+own KV cache. The port gives that cache a layer axis of 1 like every other
+segment's (the reference's is unstacked), so one cache layout serves
+every segment.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ from repro_torch.models.layers.norms import apply_norm, norm_spec
 @dataclass(frozen=True)
 class Segment:
     kind: str
-    count: int          # layers in this segment
+    count: int          # layers in this segment (1 for a shared 'A')
+    shared: bool = False
 
 
 def default_pattern(cfg: ModelConfig) -> str:
@@ -42,10 +51,17 @@ def default_pattern(cfg: ModelConfig) -> str:
 
 
 def segment_plan(cfg: ModelConfig) -> List[Segment]:
-    """Split the block pattern into contiguous same-kind runs. (The
-    reference also interleaves zamba's shared attention block; that family
-    is not ported, and ``param_specs`` refuses it.)"""
+    """Split the block pattern into contiguous same-kind runs; interleave the
+    zamba-style shared attention block every ``shared_attention_every``."""
     pattern = default_pattern(cfg)
+    if cfg.shared_attention_every:
+        period = cfg.shared_attention_every
+        out: List[Segment] = []
+        for i in range(0, len(pattern), period):
+            run = pattern[i: i + period]
+            out.append(Segment(run[0], len(run)))
+            out.append(Segment("A", 1, shared=True))
+        return out
     out = []
     i = 0
     while i < len(pattern):
@@ -57,6 +73,10 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
     return out
 
 
+def num_shared_invocations(plan: List[Segment]) -> int:
+    return sum(1 for s in plan if s.shared)
+
+
 # ---------------------------------------------------------------------------
 # Parameter specs
 # ---------------------------------------------------------------------------
@@ -64,9 +84,10 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The reference's tree for a text-only decoder: ``embed``,
-    ``final_norm``, ``segments`` (one stacked tree a segment) and
-    ``lm_head`` unless the embeddings are tied."""
-    if cfg.is_encdec or cfg.family == "vlm" or cfg.shared_attention_every:
+    ``final_norm``, ``segments`` (one stacked tree a segment, ``{}`` for a
+    shared one), ``lm_head`` unless the embeddings are tied, and the one
+    ``shared_attn`` block of a hybrid model."""
+    if cfg.is_encdec or cfg.family == "vlm":
         raise NotImplementedError(
             f"repro_torch: family {cfg.family!r} is not ported yet "
             "(ROADMAP.md queue 1, item 4)")
@@ -75,13 +96,16 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "embed": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), dt_,
                       init="embed", scale=0.02),
         "final_norm": norm_spec(cfg.norm_kind, cfg.d_model, dt_),
-        "segments": [stack_tree(blk.block_spec(s.kind, cfg), s.count)
+        "segments": [{} if s.shared
+                     else stack_tree(blk.block_spec(s.kind, cfg), s.count)
                      for s in segment_plan(cfg)],
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = spec(
             (cfg.d_model, cfg.vocab_size), ("embed", "vocab"), dt_, scale=0.02
         )
+    if cfg.shared_attention_every:
+        specs["shared_attn"] = blk.block_spec("A", cfg)
     return specs
 
 
@@ -104,6 +128,14 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _block(params, seg: Segment, sj: int, li: int):
+    """The parameters of layer ``li`` of segment ``sj``: a slice of the
+    segment's stacked tree, or the one shared attention block."""
+    if seg.shared:
+        return params["shared_attn"]
+    return _layer(params["segments"][sj], li)
 
 
 def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -151,7 +183,7 @@ def _run_seq(params, cfg: ModelConfig, x: torch.Tensor, ctx: blk.SeqContext,
         entries = []
         for li in range(lo, hi):
             x, c = blk.block_apply_seq(plan[sj].kind,
-                                       _layer(params["segments"][sj], li),
+                                       _block(params, plan[sj], sj, li),
                                        x, ctx, cfg)
             entries.append(c)
         caches.append(_stack(entries) if ctx.cache_len else None)
@@ -167,7 +199,7 @@ def _run_decode(params, cfg: ModelConfig, x: torch.Tensor,
     for (sj, lo, hi), cache in zip(ranges, caches):
         for j, li in enumerate(range(lo, hi)):
             x, _ = blk.block_apply_decode(plan[sj].kind,
-                                          _layer(params["segments"][sj], li),
+                                          _block(params, plan[sj], sj, li),
                                           x, _layer(cache, j), ctx, cfg)
     return x
 
@@ -198,15 +230,17 @@ def forward_seq(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 # ---------------------------------------------------------------------------
 
 
-def _zero_caches(cfg: ModelConfig, batch: int, cache_len: int,
-                 counts: List[Tuple[int, int]], device) -> List[Any]:
+def _init_cache_list(cfg: ModelConfig, batch: int, cache_len: int,
+                     counts: List[Tuple[int, int]], device) -> List[Any]:
+    """Each segment's initial cache entry repeated along a leading layer
+    axis of ``count`` (zeros, and an mLSTM / sLSTM stabilizer's -1e30)."""
     plan = segment_plan(cfg)
     dtype = torch_dtype(cfg.dtype)
     caches = []
     for sj, count in counts:
         one = blk.init_block_cache(plan[sj].kind, cfg, batch, cache_len,
                                    dtype, device)
-        caches.append({k: v.new_zeros((count,) + tuple(v.shape))
+        caches.append({k: v.expand((count,) + tuple(v.shape)).clone()
                        for k, v in one.items()})
     return caches
 
@@ -214,7 +248,7 @@ def _zero_caches(cfg: ModelConfig, batch: int, cache_len: int,
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device=None) -> List[Any]:
     """Zero decode caches; structure mirrors forward_seq's cache output."""
-    return _zero_caches(cfg, batch, cache_len,
+    return _init_cache_list(cfg, batch, cache_len,
                         [(sj, s.count) for sj, s in
                          enumerate(segment_plan(cfg))], device)
 
@@ -233,7 +267,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
 
 
 def _decode_seq_hint(caches) -> int:
-    """The nominal sequence length: the attention caches' length."""
+    """The nominal sequence length: the attention caches' length (used only
+    to pick the window; attention-free models return 0)."""
     for seg_cache in caches:
         if isinstance(seg_cache, dict) and "k" in seg_cache:
             return seg_cache["k"].shape[-3]
@@ -298,7 +333,7 @@ def init_head_caches(cfg: ModelConfig, batch: int, cache_len: int,
                      point: int, device=None) -> List[Any]:
     """Zero edge-side caches: blocks [0, point] only."""
     check_streamable(cfg)
-    return _zero_caches(cfg, batch, cache_len,
+    return _init_cache_list(cfg, batch, cache_len,
                         [(sj, hi - lo) for sj, lo, hi in
                          _head_ranges(cfg, point)], device)
 
@@ -309,7 +344,7 @@ def init_tail_caches(cfg: ModelConfig, batch: int, cache_len: int,
     cloud-side config, so ``cfg.kv_cache_bits == 8`` stores int8 codes +
     per-(position, kv-head) float32 scales."""
     check_streamable(cfg)
-    return _zero_caches(cfg, batch, cache_len,
+    return _init_cache_list(cfg, batch, cache_len,
                         [(sj, hi - lo) for sj, lo, hi in
                          _tail_ranges(cfg, point)], device)
 
@@ -415,7 +450,7 @@ def run_heads(params, cfg: ModelConfig, batch,
     for sj, lo, hi in _head_ranges(cfg, max(want)):
         for li in range(lo, hi):
             x, _ = blk.block_apply_seq(plan[sj].kind,
-                                       _layer(params["segments"][sj], li),
+                                       _block(params, plan[sj], sj, li),
                                        x, ctx, cfg)
             if point in want:
                 taps[point] = x

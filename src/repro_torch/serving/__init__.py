@@ -1,8 +1,9 @@
-"""Serving runtimes of the port: KV-cache sessions and continuous
-batching for the dense decoders, token streaming across a JALAD cut, the
-synchronous edge-cloud server, the pipelined server, the fleet server
-(many edges, one shared cloud) with its trace-shaped workloads, and the
-three-tier server (devices, one shared edge server, one cloud)."""
+"""Serving runtimes of the port: sessions and continuous batching for the
+decoders (KV caches and recurrent states), token streaming across a
+JALAD cut, the synchronous edge-cloud server, the pipelined server, the
+fleet server (many edges, one shared cloud) with its trace-shaped
+workloads, and the three-tier server (devices, one shared edge server,
+one cloud)."""
 from repro_torch.serving.engine import Request, RequestScheduler, ServeSession
 from repro_torch.serving.scheduler import ContinuousBatchingEngine, GenRequest
 from repro_torch.serving.edge_cloud import (

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Several test workers share the host: cap this worker's intra-op
+# threads, or the OpenMP pools of all of them spin against each other.
+torch.set_num_threads(2)
 
 from repro_torch.codec import get_codec  # noqa: E402
 from repro_torch.core import entropy as ent  # noqa: E402

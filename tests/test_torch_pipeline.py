@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Several test workers share the host: cap this worker's intra-op
+# threads, or the OpenMP pools of all of them spin against each other.
+torch.set_num_threads(2)
 
 import jax  # noqa: E402
 
@@ -50,6 +53,9 @@ POINTS = [1, 4, 17, 18, 19]
 BITS = (2, 8)
 CODECS = ("huffman", "bitpack", "perchannel")
 BATCH = 2
+# How long a test waits for each pipeline stage thread to drain (a request
+# takes well under a second here), so a hung stage fails the test.
+STAGE_TIMEOUT_S = 60.0
 # A bandwidth step down then up: the EWMA estimate crosses the plans'
 # break-even points in both directions.
 TRACE = [3e8] * 2 + [3e3] * 10 + [3e8] * 2
@@ -91,7 +97,8 @@ def test_pipeline_matches_reference(shared):
     tpipe = PipelinedEdgeCloudServer(teng, tparams, micro_batch=1)
     for i, (batch, bw) in enumerate(zip(items, TRACE)):
         jpipe.serve([JRequest(uid=i, batch=batch, bandwidth=bw)])
-        tpipe.serve([PipelineRequest(uid=i, batch=batch, bandwidth=bw)])
+        tpipe.serve([PipelineRequest(uid=i, batch=batch, bandwidth=bw)],
+                    timeout_s=STAGE_TIMEOUT_S)
     jdone, tdone = jpipe.completed, tpipe.completed
     assert [r.uid for r in tdone] == list(range(len(TRACE)))
     assert [_plan(r.plan) for r in tdone] == [_plan(r.plan) for r in jdone]
@@ -130,7 +137,7 @@ def test_microbatched_blobs_match_per_request(shared, codec):
     pipe = PipelinedEdgeCloudServer(engine, tparams, micro_batch=4)
     pipe.controller.observe_transfer(3e8, 1.0)
     done = pipe.serve([PipelineRequest(uid=i, batch=items[i], bandwidth=3e8)
-                       for i in range(4)])
+                       for i in range(4)], timeout_s=STAGE_TIMEOUT_S)
     plan = done[0].plan
     assert not plan.is_cloud_only and plan.codec == codec
     runner = pipe.runners.get(plan)

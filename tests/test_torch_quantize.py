@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Several test workers share the host: cap this worker's intra-op
+# threads, or the OpenMP pools of all of them spin against each other.
+torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
