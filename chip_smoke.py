@@ -132,7 +132,26 @@ NVIDIA card.
    ``compress_state`` at 8 bits on the prefill's caches, each leaf within
    half a quantization step of its range; (e) 5 profiled stream steps.
    Then each model reduced, float32, card against CPU.
-10. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+10. Serves the MoE family at full width and cut depth, bfloat16, random
+   weights from seed 0 drawn on the card (``draw="device"``):
+   grok-1-314b at its first 4 blocks (``eeee``, 21.3 B parameters) and
+   llama4-maverick-400b-a17b at its first 3 (``ded``, 18.6 B); 80 GB hold
+   no more. Each through the phases of step 8: (a) ``ServeSession``
+   (batch 4, prompt 32, 16 tokens), split equal to unsplit bit for bit at
+   the points of ``MOE_ARCHS``, and one 512-token prefill (two routing
+   groups of 256) whose capacity drops the port counts, held against a
+   plain recount of the same routing (one row of random tokens, one of
+   a repeated token, which must drop); (b) the engine, greedy and
+   sampled, batched equal to solo; (c) ``build_edge_cloud_server`` and
+   ``decide_streaming``, K1–K5 byte for byte on real frames of k = 1..4
+   rows of (1, 1, 6144) or (1, 1, 5120) and a 32-token prompt, and for
+   each codec the stream pinned at ``MOE_ARCHS``' point, 8 bits, int8
+   tail KV (its bytes ratio checked), one encode and one decode launch a
+   step group plus one of each a join, batched equal to solo for
+   ``RNN_SOLO_CODEC``; (d) 5 profiled stream steps; (e) each model
+   reduced, float32, card against CPU. Prints each model's weight-draw
+   time and peak device memory.
+11. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -278,6 +297,29 @@ RNN_SMALL_RTOL = 1e-5
 # prompts of RNN_CALIB_SEQ tokens.
 RNN_SOLO_CODEC = "bitpack"
 RNN_CALIB_SEQ = 16
+
+# MoE LM serving (step 10): full-width grok-1-314b and llama4, bfloat16,
+# random weights from seed 0 drawn on the card, each at the depth one 80 GB
+# card holds (a prefix of the published block pattern), through the phases
+# of step 8. Each arch's cut (the stream's point) and its split points:
+# grok after its second block (``seg0_e1``); llama4 after its dense first
+# block (``seg0_d0``), so the 32 GB expert layer sits in the cloud tail.
+MOE_ARCHS = {
+    "grok-1-314b": dict(cut=dict(num_layers=4, block_pattern="eeee"),
+                        point=1, split=(0, 1, 2)),
+    "llama4-maverick-400b-a17b": dict(
+        cut=dict(num_layers=3, block_pattern="ded"), point=0,
+        split=(0, 1)),
+}
+# One prefill of two rows of MOE_DROP_PROMPT tokens (two routing groups of
+# 256 a row): random tokens, and one token repeated, whose identical
+# hidden rows all choose the same experts and must overflow them.
+MOE_DROP_PROMPT = 512
+# The int8 tail KV of a bf16 model: codes at half the bytes plus one
+# float32 scale a (position, kv-head) of head_dim 128.
+MOE_KV_RATIO = 0.5 + 4 / 256
+# Reduced models in float32, card against CPU (as LM_SMALL_RTOL).
+MOE_SMALL_RTOL = 1e-5
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -1907,7 +1949,7 @@ def lm_split_equal(torch, model, params, tb, s, new, points) -> None:
 
 
 def lm_session_phase(torch, model, params, points, what: str):
-    """(a) of steps 8 and 9: ``ServeSession`` at LM_SESSION (prefill,
+    """(a) of steps 8-10: ``ServeSession`` at LM_SESSION (prefill,
     median of 3, and greedy tokens), split against unsplit bitwise at
     ``points``. Returns (session dict, the batch, the prefill's caches)."""
     from repro_torch.config import ServeConfig
@@ -1945,7 +1987,7 @@ def lm_session_phase(torch, model, params, points, what: str):
 
 
 def lm_engine_phase(torch, model, params, what: str):
-    """(b) of steps 8 and 9: LM_REQUESTS staggered requests on
+    """(b) of steps 8-10: LM_REQUESTS staggered requests on
     LM_MAX_BATCH slots, each request's tokens, greedy and sampled, equal
     to a one-slot engine's, and one 8-row decode's logits bitwise equal to
     each request alone. Returns (engine dict, the requests)."""
@@ -1989,7 +2031,7 @@ def lm_engine_phase(torch, model, params, what: str):
 
 
 def lm_plan_phase(torch, model, params, batch, point, calib_seq: int):
-    """(c) of steps 8 and 9, before the streams: ``build_edge_cloud_server``
+    """(c) of steps 8-10, before the streams: ``build_edge_cloud_server``
     over the three codecs (calibration timed), ``decide_streaming`` at
     LM_BANDWIDTHS, and the stream kernels held against their plain
     versions on real frames at ``point``. Returns (server, a dict of
@@ -2036,7 +2078,7 @@ def lm_plan_phase(torch, model, params, batch, point, calib_seq: int):
 
 def lm_stream_phase(torch, make, model, point, reqs, codec, counts,
                     solo: bool):
-    """(c) and (e) of steps 8 and 9 for one codec: ``make(max_batch)``'s
+    """(c) and (e) of steps 8-10 for one codec: ``make(max_batch)``'s
     session pinned at ``point`` serves ``reqs`` (sampled), the counters
     set to 0 around every step: one encode and one decode launch for the
     step's group plus one of each a join (added into ``counts``); with
@@ -2140,24 +2182,54 @@ def lm_small_check(torch, cfg, rtol: float) -> float:
     return rel
 
 
-def load_lm(torch, arch: str):
-    """Full-width ``arch`` with random weights from seed 0 on the card."""
+def load_lm(torch, arch: str, draw: str = "cpu", **cut):
+    """Full-width ``arch`` (its depth cut by ``cut``: ``num_layers`` and
+    ``block_pattern``) with random weights from seed 0 on the card, drawn
+    on the CPU or (``draw="device"``) on the card; the draw's time. The
+    card's peak memory counter is reset first."""
     from repro_torch.config import get_config
     from repro_torch.models.api import build_model
 
-    model = build_model(get_config(arch))
+    model = build_model(get_config(arch).replace(**cut))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(0, torch.device("cuda"))
+    params = model.init(0, torch.device("cuda"), draw=draw)
     torch.cuda.synchronize()
     return model, params, time.perf_counter() - t0
+
+
+def lm_codec_streams(torch, model, params, server, point, reqs, counts,
+                     solo_codecs, cloud_kv_bits: int = 8) -> dict:
+    """(c)-(e) of steps 8-10: for each codec, ``lm_stream_phase`` on the
+    stream pinned at ``point``, LM_STREAM_BITS bits (batched equal to solo
+    for ``solo_codecs``); then every codec's encode and decode kernel must
+    have launched, and no Huffman frame taken the host. Returns the
+    streams by codec."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core.decoupler import DecoupledPlan
+
+    streams = {}
+    for codec in CODECS:
+        plan = DecoupledPlan(point, LM_STREAM_BITS, 0.0, 0.0, 0.0, codec)
+        runner = server.engine.make_runner(params, plan)
+        streams[codec] = lm_stream_phase(
+            torch, lambda n: runner.stream_session(ServeConfig(
+                max_batch=n, max_seq_len=LM_SEQ),
+                cloud_kv_bits=cloud_kv_bits),
+            model, point, reqs, codec, counts, solo=codec in solo_codecs)
+    for codec in CODECS:
+        for name in (ENCODE_KERNEL[codec], DECODE_KERNEL[codec]):
+            check(counts[name] > 0, f"{name} never launched on the "
+                  f"{model.cfg.arch_id} stream")
+    check(counts["huffman_host_route"] == 0, "a Huffman frame took the host")
+    return streams
 
 
 def serve_lm(torch, results):
     """Step 8: full-width olmo-1b (bfloat16, random weights from seed 0)
     through ServeSession, the continuous-batching engine and token
     streaming across the JALAD cut with each codec."""
-    from repro_torch.config import ServeConfig
-    from repro_torch.core.decoupler import DecoupledPlan
     from repro_torch.kernels.quantize import ops as qops
 
     model, params, init_s = load_lm(torch, LM_ARCH)
@@ -2174,19 +2246,8 @@ def serve_lm(torch, results):
     server, plan_out = lm_plan_phase(torch, model, params, batch,
                                      LM_STREAM_POINT, LM_SESSION[1])
     counts = dict.fromkeys(qops.launch_counts(), 0)
-    streams = {}
-    for codec in CODECS:
-        plan = DecoupledPlan(LM_STREAM_POINT, LM_STREAM_BITS, 0.0, 0.0, 0.0,
-                             codec)
-        runner = server.engine.make_runner(params, plan)
-        streams[codec] = lm_stream_phase(
-            torch, lambda n: runner.stream_session(ServeConfig(
-                max_batch=n, max_seq_len=LM_SEQ)),
-            model, LM_STREAM_POINT, reqs, codec, counts, solo=True)
-    for codec in CODECS:
-        for name in (ENCODE_KERNEL[codec], DECODE_KERNEL[codec]):
-            check(counts[name] > 0, f"{name} never launched on the stream")
-    check(counts["huffman_host_route"] == 0, "a Huffman frame took the host")
+    streams = lm_codec_streams(torch, model, params, server,
+                               LM_STREAM_POINT, reqs, counts, CODECS)
     rel = lm_small_check(torch, cfg, LM_SMALL_RTOL)
     print(f"  lm stream launches "
           f"{({k: v for k, v in counts.items() if v})}")
@@ -2295,30 +2356,133 @@ def serve_recurrent_lm(torch, results):
                 print(f"  (c) int8 cloud KV refused as expected: {e}")
             else:
                 check(False, f"{arch}: int8 tail KV passed the bytes check")
-        streams = {}
-        for codec in CODECS:
-            plan = DecoupledPlan(point, LM_STREAM_BITS, 0.0, 0.0, 0.0, codec)
-            runner = server.engine.make_runner(params, plan)
-            streams[codec] = lm_stream_phase(
-                torch, lambda n: runner.stream_session(ServeConfig(
-                    max_batch=n, max_seq_len=LM_SEQ), cloud_kv_bits=kv_bits),
-                model, point, reqs, codec, counts,
-                solo=codec == RNN_SOLO_CODEC)
-        for codec in CODECS:
-            for name in (ENCODE_KERNEL[codec], DECODE_KERNEL[codec]):
-                check(counts[name] > 0,
-                      f"{name} never launched on the {arch} stream")
-        check(counts["huffman_host_route"] == 0,
-              "a Huffman frame took the host")
+        streams = lm_codec_streams(torch, model, params, server, point,
+                                   reqs, counts, (RNN_SOLO_CODEC,), kv_bits)
         rel = lm_small_check(torch, cfg, RNN_SMALL_RTOL)
         out.update(session=session, engine=engine, streams=streams,
                    small_rel=rel, **plan_out)
         out_all[arch] = out
-        del model, params, server, runner
+        del model, params, server
         torch.cuda.empty_cache()
     print(f"  recurrent lm stream launches "
           f"{({k: v for k, v in counts.items() if v})}")
     results["lm_recurrent"] = out_all
+    return counts
+
+
+def moe_drop_check(torch, model, params) -> dict:
+    """(a) of step 10: one prefill of two rows of MOE_DROP_PROMPT tokens
+    (random tokens; one token repeated) with every MoE layer's routing
+    recorded. The kept mask of each layer equals a plain recount of the
+    same expert ids (each expert's first ``capacity`` choices of a group
+    of 256 tokens, token-major, then choice rank; the capacity from the
+    plain rule), the port's drop count equals the recount's, and the
+    repeated-token row drops. Returns the drops a row and the prefill's
+    time."""
+    import numpy as np
+
+    from repro_torch.models.layers import moe as moe_lib
+
+    cfg, n = model.cfg, MOE_DROP_PROMPT
+    e, k = cfg.num_experts, cfg.experts_per_token
+    rng = np.random.default_rng(5)
+    toks = np.stack([rng.integers(1, cfg.vocab_size, size=n),
+                     np.full(n, 7)])
+    tb = {"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                    device=torch.device("cuda"))}
+    with torch.no_grad(), moe_lib.record_routing() as seen:
+        t1 = sync_clock(torch)
+        logits = model.forward(params, tb)
+        ms = (sync_clock(torch) - t1) * 1e3
+    check(tuple(logits.shape) == (2, n, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "drop prefill logits")
+    group = 256
+    cap = max(int(group * k * 1.25 / e), min(4, group * k))
+    cap = -(-cap // 8) * 8
+    per_row, port = [0, 0], 0
+    check(len(seen) == cfg.block_pattern.count("e"),
+          f"{len(seen)} routings recorded")
+    for layer, r in enumerate(seen):
+        check(r.capacity == cap, f"layer {layer}: capacity {r.capacity} "
+              f"!= {cap}")
+        ids, kept = r.ids.cpu().numpy(), r.kept.cpu().numpy()
+        want = np.zeros_like(kept)
+        for b in range(2):
+            for g0 in range(0, n, group):
+                used = np.zeros(e, np.int64)
+                for t in range(g0, g0 + group):
+                    for j in range(k):
+                        want[b, t, j] = used[ids[b, t, j]] < cap
+                        used[ids[b, t, j]] += 1
+            per_row[b] += int((~want[b]).sum())
+        check(np.array_equal(kept, want),
+              f"layer {layer}: kept mask != the plain recount")
+        port += moe_lib.dropped_choices(r)
+    check(port == sum(per_row), f"drops {port} != recount {per_row}")
+    check(per_row[1] > 0, "the repeated-token row dropped no choice")
+    return dict(prompt=n, capacity=cap, dropped=per_row,
+                choices_a_row=n * k * len(seen), prefill_ms=ms)
+
+
+def serve_moe_lm(torch, results):
+    """Step 10: full-width grok-1-314b and llama4-maverick-400b-a17b at
+    the depths of MOE_ARCHS (bfloat16, random weights from seed 0 drawn
+    on the card) through the phases of step 8, with a 512-token prefill
+    that drops choices and the int8 tail KV's bytes ratio."""
+    import gc
+
+    from repro_torch.kernels.quantize import ops as qops
+
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    out_all = {}
+    for arch, spec in MOE_ARCHS.items():
+        model, params, init_s = load_lm(torch, arch, "device", **spec["cut"])
+        cfg, names, point = model.cfg, model.decoupling_points(), spec["point"]
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"MoE: {arch} at {cfg.block_pattern} ({model.param_count():,} "
+              f"parameters, {nbytes / 1e9:.2f} GB; d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+              f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
+              f"expert FFN {cfg.moe_d_ff_}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype}); weights from seed 0 drawn on the card in "
+              f"{init_s:.2f} s (peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+        out = dict(card=card_line(), arch=arch, pattern=cfg.block_pattern,
+                   params=model.param_count(), weight_bytes=nbytes,
+                   init_s=init_s, point=names[point])
+        session, batch, caches = lm_session_phase(torch, model, params,
+                                                  spec["split"], arch)
+        del caches
+        drops = moe_drop_check(torch, model, params)
+        print(f"  (a) {drops['prompt']}-token prefill, 2 rows "
+              f"({drops['prefill_ms']:.1f} ms): capacity {drops['capacity']} "
+              f"a group of 256; dropped (token, choice) pairs, random row "
+              f"{drops['dropped'][0]}, repeated-token row "
+              f"{drops['dropped'][1]} of {drops['choices_a_row']} a row "
+              f"(== a plain recount of the same routing)")
+        session["drops"] = drops
+        engine, reqs = lm_engine_phase(torch, model, params, arch)
+        server, plan_out = lm_plan_phase(torch, model, params, batch, point,
+                                         LM_SESSION[1])
+        streams = lm_codec_streams(torch, model, params, server, point,
+                                   reqs, counts, (RNN_SOLO_CODEC,))
+        for codec, st in streams.items():
+            check(st["kv_bytes_ratio"] == MOE_KV_RATIO,
+                  f"{arch} {codec}: int8 tail KV {st['kv_bytes_ratio']} of "
+                  f"bf16, not {MOE_KV_RATIO}")
+        rel = lm_small_check(torch, cfg, MOE_SMALL_RTOL)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {arch}: peak device memory {peak / 1e9:.2f} GB "
+              f"(weights {nbytes / 1e9:.2f} GB)")
+        out.update(session=session, engine=engine, streams=streams,
+                   small_rel=rel, peak_bytes=peak, **plan_out)
+        out_all[arch] = out
+        del model, params, server
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  moe lm stream launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    results["lm_moe"] = out_all
     return counts
 
 
@@ -2390,9 +2554,10 @@ def main(argv=None) -> int:
     three = step("three-tier", serve_three_tier, params)
     lm = step("lm serving", serve_lm)
     rnn = step("recurrent lm serving", serve_recurrent_lm)
+    moe = step("moe lm serving", serve_moe_lm)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
              "threelaunch": k6_path, "three_tier": three, "lm_stream": lm,
-             "rnn_stream": rnn}
+             "rnn_stream": rnn, "moe_stream": moe}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

@@ -1,6 +1,7 @@
 """Serving launcher of the port: batched and continuous-batching
-generation for the decoders (dense, ssm and hybrid families: olmo-1b,
-qwen3-8b, yi-6b, granite-34b, xlstm-1.3b, zamba2-2.7b), and JALAD
+generation for the decoders (dense, moe, ssm and hybrid families:
+olmo-1b, qwen3-8b, yi-6b, granite-34b, grok-1-314b,
+llama4-maverick-400b-a17b, xlstm-1.3b, zamba2-2.7b), and JALAD
 edge-cloud serving of the CNN testbed (synchronous or pipelined), on the
 CUDA card unless ``--device cpu`` is given.
 
@@ -12,6 +13,9 @@ CUDA card unless ``--device cpu`` is given.
       --reduced --continuous --device cpu   # small CPU run
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --continuous --requests 6         # Mamba2 hybrid (or xlstm-1.3b)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
+      --reduced --device cpu [--continuous]   # MoE (full depth fits no
+                                              # one card)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --jalad --codec huffman --bandwidth 300e3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \

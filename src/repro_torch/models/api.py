@@ -2,10 +2,10 @@
 :class:`Model` with the reference's decoupling surface (``forward``,
 ``decoupling_points``, ``run_head``, ``run_heads``, ``run_segment``,
 ``run_tail``, ``per_point_fmacs``, ``boundary_bytes``) for the paper's CNN
-testbed and the decoder families (dense, ssm, hybrid), which also serve
-(``prefill``, ``decode_step``, ``init_caches``) and stream across a cut
-(``prefill_head`` / ``prefill_tail``, ``decode_head`` / ``decode_tail``,
-``init_head_caches`` / ``init_tail_caches``).
+testbed and the decoder families (dense, moe, ssm, hybrid), which also
+serve (``prefill``, ``decode_step``, ``init_caches``) and stream across a
+cut (``prefill_head`` / ``prefill_tail``, ``decode_head`` /
+``decode_tail``, ``init_head_caches`` / ``init_tail_caches``).
 
 Parameters are nested dicts (and, for the decoder's segments, lists) of
 tensors keyed like the reference's trees. Batches are dicts: ``"images"``
@@ -15,7 +15,7 @@ are moved to the parameters' device by :func:`batch_to`).
 One difference from the reference: a decoder's ``run_head`` returns the
 boundary tensor alone. Text positions are ``arange`` over the sequence,
 which the tail rebuilds from the boundary's shape, so there are no extras
-to carry. Other model families (moe, vlm, audio) are not ported yet and
+to carry. The other model families (vlm, audio) are not ported yet and
 raise.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ from repro_torch.models.init import materialize
 from repro_torch.models.layers.mamba2 import mamba_dims
 
 # Families the port builds; the others raise in build_model.
-PORTED_FAMILIES = ("cnn", "dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("cnn", "dense", "moe", "ssm", "hybrid")
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -53,9 +53,13 @@ class Model:
         self.layers = None if self.is_lm else cnn_lib.build_layers(self.cfg)
 
     # ------------------------------------------------------------- params
-    def init(self, seed: int = 0, device: DeviceLike = None) -> Dict:
-        """Random parameters from ``seed`` on ``device`` (default: cuda)."""
-        return materialize(self.specs, seed, resolve_device(device))
+    def init(self, seed: int = 0, device: DeviceLike = None,
+             draw: str = "cpu") -> Dict:
+        """Random parameters from ``seed`` on ``device`` (default: cuda),
+        drawn on the CPU (the default: the same values on every device)
+        or, with ``draw="device"``, on the device itself, a bounded chunk
+        at a time (see :func:`repro_torch.models.init.materialize`)."""
+        return materialize(self.specs, seed, resolve_device(device), draw)
 
     def param_count(self) -> int:
         def count(tree):
@@ -236,8 +240,11 @@ def _block_fmacs_per_token(cfg: ModelConfig) -> List[float]:
     out: List[float] = []
     attn = d * (h + 2 * kv) * hd + h * hd * d       # qkv + out proj
     dense_mlp = 3.0 * d * cfg.d_ff
+    moe_mlp = 3.0 * d * cfg.moe_d_ff_ * cfg.experts_per_token
     for kind in tf_lib.default_pattern(cfg):
-        if kind == "m":
+        if kind == "e":             # the k routed experts and the router
+            out.append(attn + moe_mlp + d * cfg.num_experts)
+        elif kind == "m":
             dims = mamba_dims(cfg)
             out.append(d * (2 * dims.d_inner + 2 * dims.state + dims.heads)
                        + dims.d_inner * d)
@@ -265,7 +272,7 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"repro_torch: model family {cfg.family!r} is not yet ported "
             "(ROADMAP.md queue 1, item 4); the CNN testbed "
-            "(vgg16/19, resnet50/101) and the dense, ssm and hybrid "
+            "(vgg16/19, resnet50/101) and the dense, moe, ssm and hybrid "
             "decoders are")
     if cfg.family == "cnn":
         return Model(cfg=cfg, specs=cnn_lib.cnn_param_specs(cfg))

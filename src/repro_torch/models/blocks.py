@@ -6,12 +6,13 @@ axis (the reference's layout, so a reference parameter tree bridges in
 as it is). Block kinds the port runs:
 
   'd'  dense decoder block   (attn + SwiGLU)           — llama family
+  'e'  MoE decoder block     (attn + top-k experts)    — llama4 / grok
   'm'  Mamba2 block                                    — zamba2
   'l'  mLSTM block                                     — xlstm
   's'  sLSTM block                                     — xlstm
   'A'  shared attention block (zamba2; one parameter set, many invocations)
 
-The reference's other kinds ('e', 'E', 'c') raise.
+The reference's other kinds ('E', 'c') raise.
 
 Each kind provides ``block_spec`` (ParamSpec tree), ``block_apply_seq``
 (full sequence; returns (x, cache_entry)) and ``block_apply_decode`` (one
@@ -31,17 +32,18 @@ from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
 from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.mlp import apply_swiglu, swiglu_spec
+from repro_torch.models.layers.moe import moe_forward, moe_spec
 from repro_torch.models.layers.norms import apply_norm, norm_spec
 
 # The reference's other block kinds, none of them ported yet.
 _UNPORTED = {
-    "e": "the MoE decoder block (moe family)",
     "E": "the encoder block (audio family)",
     "c": "the cross-attention decoder block (audio family)",
 }
 
 
-_ATTN = ("d", "A")          # attention + SwiGLU; 'A' shares its weights
+_ATTN = ("d", "e", "A")     # attention, then SwiGLU ('e': the experts);
+                            # 'A' shares its weights
 _RECURRENT = {"m": "mamba", "l": "mlstm", "s": "slstm"}   # kind -> params key
 
 
@@ -90,7 +92,7 @@ def block_spec(kind: str, cfg: ModelConfig):
         "ln1": norm_spec(cfg.norm_kind, d, dt_),
         "attn": attn_lib.attention_spec(cfg),
         "ln2": norm_spec(cfg.norm_kind, d, dt_),
-        "mlp": swiglu_spec(d, cfg.d_ff, dt_),
+        "mlp": moe_spec(cfg) if kind == "e" else swiglu_spec(d, cfg.d_ff, dt_),
     }
 
 
@@ -161,12 +163,22 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
     q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.positions, cfg)
     out = attn_lib.prefill_attention(q, k, v, causal=True, window=ctx.window)
     x = x + attn_lib.attn_output(params["attn"], out)
-    h2 = apply_norm(cfg.norm_kind, params["ln2"], x)
-    x = x + apply_swiglu(params["mlp"], h2)
+    x = x + _mlp(kind, params, x, cfg)
     cache = None
     if ctx.cache_len:
         cache = _build_kv_cache(k, v, s, ctx.cache_len, cfg)
     return x, cache
+
+
+def _mlp(kind: str, params, x: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    """``ln2``, then the feed-forward of an attention block: the experts of
+    an ``'e'`` block (without the load-balance loss: nothing here
+    trains), SwiGLU otherwise."""
+    h2 = apply_norm(cfg.norm_kind, params["ln2"], x)
+    if kind == "e":
+        return moe_forward(params["mlp"], h2, cfg)[0]
+    return apply_swiglu(params["mlp"], h2)
 
 
 def _build_kv_cache(k, v, s, cache_len, cfg: ModelConfig):
@@ -221,8 +233,7 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
                                              ctx.pos, ctx.live)
     out = attn_lib.decode_attention(q, k_use, v_use, ctx.pos + 1)
     x = x + attn_lib.attn_output(params["attn"], out)
-    h2 = apply_norm(cfg.norm_kind, params["ln2"], x)
-    return x + apply_swiglu(params["mlp"], h2), cache
+    return x + _mlp(kind, params, x, cfg), cache
 
 
 def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,

@@ -7,6 +7,11 @@ explicit ``torch.Generator``: truncated normal in [-2, 2], scaled by
 ``scale / sqrt(fan_in)`` with the reference's fan-in rule. The numbers
 differ from the reference's (JAX's PRNG is not reproducible in PyTorch);
 ``repro_torch.models.bridge`` copies a reference parameter tree instead.
+
+Two draws: the default samples every leaf whole on the CPU, so the values
+depend on the seed alone; ``draw="device"`` samples on the target device,
+a bounded chunk at a time, for models whose float32 leaves would not fit
+in host memory (the values then come from that device's generator).
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+# Elements the device draw samples at a time: 2^26 float32, 256 MiB.
+DEVICE_CHUNK = 1 << 26
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -70,31 +77,59 @@ def _fan_in(s: ParamSpec) -> int:
     return 1
 
 
-def materialize_leaf(gen: torch.Generator, s: ParamSpec) -> torch.Tensor:
+def materialize_leaf(gen: torch.Generator, s: ParamSpec, device,
+                     chunk: int) -> torch.Tensor:
+    """Sample one leaf on ``device`` with ``gen`` (a generator of that
+    device): the leaf is allocated in its own dtype, then filled ``chunk``
+    elements at a time in flat order, each chunk drawn in float32, scaled
+    and cast into place, so at most one float32 chunk exists at a time."""
     dtype = torch_dtype(s.dtype)
     if s.init == "zeros":
-        return torch.zeros(s.shape, dtype=dtype)
+        return torch.zeros(s.shape, dtype=dtype, device=device)
     if s.init == "ones":
-        return torch.ones(s.shape, dtype=dtype)
-    if s.init == "embed":
-        out = torch.randn(s.shape, generator=gen, dtype=torch.float32)
-        return (out * s.scale).to(dtype)
-    # "normal" / "conv": truncated normal, fan-in scaled.
-    out = torch.empty(s.shape, dtype=torch.float32)
-    std = s.scale / np.sqrt(max(_fan_in(s), 1))
-    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (out * std).to(dtype)
+        return torch.ones(s.shape, dtype=dtype, device=device)
+    # "embed": normal times the scale; "normal" / "conv": truncated normal,
+    # fan-in scaled.
+    std = s.scale if s.init == "embed" else (
+        s.scale / np.sqrt(max(_fan_in(s), 1)))
+    out = torch.empty(s.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), max(chunk, 1)):
+        part = torch.empty(min(chunk, flat.numel() - lo),
+                           dtype=torch.float32, device=device)
+        if s.init == "embed":
+            part.normal_(generator=gen)
+        else:
+            torch.nn.init.trunc_normal_(part, 0.0, 1.0, -2.0, 2.0,
+                                        generator=gen)
+        flat[lo:lo + part.numel()].copy_(part.mul_(std))
+        del part                # before the next chunk is allocated
+    return out
 
 
-def materialize(specs, seed: int, device) -> dict:
-    """Sample a nested dict (or list) of ParamSpecs on the CPU from
-    ``seed`` (so the values do not depend on the device), then move them
-    to ``device``."""
-    gen = torch.Generator().manual_seed(int(seed))
+def materialize(specs, seed: int, device, draw: str = "cpu") -> dict:
+    """Sample a nested dict (or list) of ParamSpecs from ``seed`` onto
+    ``device``. ``draw="cpu"`` (the default) samples each leaf whole on
+    the CPU with one CPU generator, then moves it, so the values do not
+    depend on the device. ``draw="device"`` samples on ``device`` with a
+    generator of that device seeded from ``seed``, :data:`DEVICE_CHUNK`
+    elements at a time: host memory and host time stay flat whatever the
+    model's size. Its values are the device generator's: the same for a
+    seed on one kind of device, not the CPU draw's."""
+    if draw not in ("cpu", "device"):
+        raise ValueError(f"draw must be 'cpu' or 'device', not {draw!r}")
+    device = torch.device(device)
+    on = device if draw == "device" else torch.device("cpu")
+    gen = torch.Generator(device=on)
+    gen.manual_seed(int(seed))
+
+    def leaf(s: ParamSpec) -> torch.Tensor:
+        chunk = DEVICE_CHUNK if draw == "device" else int(np.prod(s.shape))
+        return materialize_leaf(gen, s, on, chunk).to(device)
 
     def walk(tree):
         if isinstance(tree, ParamSpec):
-            return materialize_leaf(gen, tree).to(device)
+            return leaf(tree)
         if isinstance(tree, list):
             return [walk(v) for v in tree]
         return {k: walk(v) for k, v in tree.items()}

@@ -1,4 +1,4 @@
-"""Decoder assembly (the dense, ssm and hybrid families): segment plan,
+"""Decoder assembly (the dense, moe, ssm and hybrid families): segment plan,
 parameter specs, the full-sequence forward (prefill), single-token decode,
 and the token-level head/tail split that runs the JALAD cut inside the
 decode loop.

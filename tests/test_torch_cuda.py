@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
-the card, and the batched cloud step that the fleet server runs. Every
+the card, the batched cloud step that the fleet server runs, and the
+parameter draw on the card (``models/init.py``). Every
 test here carries ``requires_cuda`` and skips without a card. The file
 imports neither JAX nor the reference package
 (the plain versions are pinned to the reference by the other
@@ -571,3 +572,62 @@ def test_cloud_step_batch_matches_cloud_step(cuda, codec):
         scale = float(want.abs().max())
         assert float((f - want).abs().max()) <= 1e-4 * scale
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# models/init.py: the draw on the card
+# ---------------------------------------------------------------------------
+
+
+def test_device_draw_is_seeded_shaped_and_chunked(cuda, monkeypatch):
+    """draw="device" on the card: the specs' shapes, dtypes and device;
+    the same bits for a seed (two draws), other bits for another seed;
+    the initializer's scale; and the card's peak memory over the draw of
+    a bf16 leaf of 2^27 elements (256 MiB) with chunks of 2^24 stays
+    within the leaf plus ONE float32 chunk (64 MiB), not the leaf's 512
+    MiB of float32."""
+    from repro_torch.models import init as init_lib
+    from repro_torch.models.init import materialize, spec
+
+    chunk = 1 << 24
+    monkeypatch.setattr(init_lib, "DEVICE_CHUNK", chunk)
+    specs = {"w": spec((8, 4096, 4096), ("e", "d", "f"), "bfloat16"),
+             "r": spec((4096, 8), ("d", "e"), "float32", scale=0.1),
+             "n": spec((4096,), ("d",), "bfloat16", init="ones")}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = materialize(specs, 0, cuda, draw="device")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = sum(v.numel() * v.element_size() for v in a.values())
+    assert peak <= leaves + chunk * 4 + (1 << 20), (peak, leaves)
+    b = materialize(specs, 0, cuda, draw="device")
+    c = materialize(specs, 1, cuda, draw="device")
+    for k, s in specs.items():
+        assert tuple(a[k].shape) == s.shape and a[k].device.type == "cuda"
+        assert str(a[k].dtype) == f"torch.{s.dtype}"
+        assert torch.equal(a[k], b[k])
+    assert not torch.equal(a["w"], c["w"])
+    assert (a["n"] == 1).all()
+    std = 1.0 / np.sqrt(8 * 4096)              # the fan-in rule
+    w = a["w"][0].float()
+    assert float(w.abs().max()) <= 2 * std * 1.01
+    assert 0.8 * std < float(w.std()) < 0.95 * std    # N(0,1) cut at 2
+
+
+def test_model_init_draws_on_the_card(cuda):
+    """Model.init(draw="device") gives the CPU draw's tree (shapes and
+    dtypes) on the card, deterministic for a seed, with other values than
+    the CPU draw (which stays the default)."""
+    from repro_torch.config import get_config
+    from repro_torch.models.api import build_model
+
+    m = build_model(get_config("grok-1-314b").reduced())
+    dev = m.init(0, cuda, draw="device")
+    again = m.init(0, cuda, draw="device")
+    host = m.init(0, cuda)
+    w = dev["segments"][0]["mlp"]["w_gate"]
+    assert torch.equal(w, again["segments"][0]["mlp"]["w_gate"])
+    assert w.shape == host["segments"][0]["mlp"]["w_gate"].shape
+    assert not torch.equal(w, host["segments"][0]["mlp"]["w_gate"])

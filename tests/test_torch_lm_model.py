@@ -222,12 +222,15 @@ def test_unported_families_raise():
     from repro_torch.models import blocks
 
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(ModelConfig(arch_id="x", family="moe", num_layers=2,
+        build_model(ModelConfig(arch_id="x", family="vlm", num_layers=2,
                                 d_model=64, num_heads=4, num_kv_heads=4,
                                 d_ff=128, vocab_size=64))
-    for kind in "eEc":
+    for kind in "Ec":
         with pytest.raises(NotImplementedError, match="queue 1"):
             blocks.block_spec(kind, get_config("olmo-1b").reduced())
-    # The recurrent kinds and the shared attention block are ported.
+    # The recurrent kinds, the shared attention block and the MoE block
+    # are ported.
     for kind in "mlsA":
         assert blocks.block_spec(kind, get_config("zamba2-2.7b").reduced())
+    spec = blocks.block_spec("e", get_config("grok-1-314b").reduced())
+    assert set(spec["mlp"]) == {"router", "w_gate", "w_up", "w_down"}

@@ -135,14 +135,15 @@ def test_param_tree_matches_reference_at_full_width(arch):
 
 
 def test_block_kinds_and_reduced_trees():
-    """m, l, s and A build; e, E and c still raise. The reduced trees
+    """m, l, s, A and e build; E and c still raise. The reduced trees
     bridged from the reference keep its shapes (sLSTM variant included)."""
     from repro_torch.models import blocks
 
     cfg = get_config("zamba2-2.7b").reduced()
     for kind in "mlsA":
         assert blocks.block_spec(kind, cfg)
-    for kind in "eEc":
+    assert blocks.block_spec("e", get_config("grok-1-314b").reduced())
+    for kind in "Ec":
         with pytest.raises(NotImplementedError, match="not ported"):
             blocks.block_spec(kind, cfg)
     for name in VARIANTS:
