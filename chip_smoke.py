@@ -48,15 +48,18 @@ NVIDIA card.
    has finite logits, every micro-batched blob equals the per-request
    encode of its request and plan, and every request's logits equal the
    cloud step of its blob.
-5. Holds the three-launch encode chain K6a (range partials), K6b
-   (quantize), K6c (nibble pack) against the plain versions at the stem,
-   res5 and odd shapes, each taken as one tensor, in float32 and bfloat16,
-   and on the real ``stem_pool`` boundary of a served request, at 2, 3, 4,
-   8 and 16 bits: partials, codes and packed bytes byte-identical, the
-   chain's ``(codes, mn, mx)`` byte-identical to K1's ``quantize_pack``,
-   exactly 3 launches a call at 4 bits or fewer and 2 above. Then drives
-   ``quantize_pack_threelaunch`` on the served boundary with the counters
-   set to 0 before and read after.
+5. Holds the three-launch encode chain K6a (range), K6b (quantize), K6c
+   (nibble pack) against the plain versions at the stem, res5 and odd
+   shapes, each taken as one tensor, in float32 and bfloat16, on the real
+   ``stem_pool`` boundary of a served request, on signed-zero inputs and on
+   the odd shape off every 16-byte boundary, at 2, 3, 4, 8 and 16 bits:
+   K6a's range by bits (also against ``ordered_aminmax``), codes and
+   packed bytes byte-identical, the chain's ``(codes, mn, mx)``
+   byte-identical to K1's ``quantize_pack``, exactly 3 launches a call at
+   4 bits or fewer and 2 above; under ``torch.profiler`` the chain must run
+   exactly those kernels and at most one memset a call. Its cold time is
+   printed beside K1's. Then drives ``quantize_pack_threelaunch`` on the
+   served boundary with the counters set to 0 before and read after.
 6. Serves full-width ResNet-50 through the fleet server: D = 4
    heterogeneous edges (TX2, TK1, a mid and a fast edge) against one shared
    cloud under a flash-crowd trace (``make_trace``), batch 4 per request,
@@ -352,15 +355,21 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def device_ms(torch, fn, flush, reps: int = 15) -> float:
+def device_ms(torch, fn, flush, reps: int = 15, clean=None) -> float:
     """Median CUDA-event time of ``fn`` with a cold L2 and the launches
-    queued behind a spin, so host overhead between launches is hidden."""
+    queued behind a spin, so host overhead between launches is hidden.
+    The L2 is flushed by zeroing ``flush``, which leaves it full of dirty
+    lines that the timed call's misses write back; with ``clean`` (a
+    second buffer larger than the L2) it is read after the zeroing, so the
+    timed call finds clean lines."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         torch.cuda._sleep(20_000_000)
         flush.zero_()
+        if clean is not None:
+            clean.amax()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1114,9 +1123,10 @@ def serve_pipeline(torch, results, base, params):
 
 
 def check_threelaunch_kernels(torch, results, base, params):
-    """Step 5: K6a, K6b, K6c against their plain versions, the chain against
-    K1, then the chain's own path on a served boundary."""
-    from repro_torch.core.quantization import affine_scale
+    """Step 5: K6a, K6b, K6c against their plain versions, K6a's range by
+    bits against ``ordered_aminmax``, the chain against K1 and its device
+    operations a call, then the chain's own path on a served boundary."""
+    from repro_torch.core.quantization import ordered_aminmax
     from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
@@ -1132,25 +1142,45 @@ def check_threelaunch_kernels(torch, results, base, params):
     with torch.no_grad():
         served = base.model.run_head(params, batch_to(batch, dev),
                                      point).contiguous()
-    inputs = {label: torch.relu(torch.randn(shape, device=dev,
-                                            generator=gen))
+
+    def both(x):
+        return x, x.to(torch.bfloat16)
+
+    inputs = {label: both(torch.relu(torch.randn(shape, device=dev,
+                                                 generator=gen)))
               for label, shape in SHAPES.items()}
-    inputs[K6_POINT] = served
+    inputs[K6_POINT] = both(served)
+    # Signed zeros: the stem with -0.0 among its +0.0 minima, and zeros
+    # only, one sign at element 7 and the other everywhere else (range
+    # (-0.0, +0.0), every code 0). The odd shape one element off every
+    # 16-byte boundary (scalar head and tail, codes stored one by one).
+    signed = inputs["stem"][0].clone()
+    signed.view(-1)[::1001] = -0.0
+    inputs["stem -0"] = both(signed)
+    zeros = torch.zeros(SHAPES["stem"], device=dev)
+    zeros.view(-1)[7] = -0.0
+    inputs["zeros -0 at 7"] = both(zeros)
+    inputs["zeros +0 at 7"] = both(-zeros)
+    off = torch.relu(torch.randn(math.prod(SHAPES["odd"]) + 1, device=dev,
+                                 generator=gen))
+    inputs["odd off"] = (off[1:], off.to(torch.bfloat16)[1:])
     rows = []
     worst = dict.fromkeys(K6_KERNELS, 0.0)
-    for label, x32 in inputs.items():
-        n = x32.numel()
-        for x in (x32, x32.to(torch.bfloat16)):
+    for label, pair in inputs.items():
+        for x in pair:
+            n = x.numel()
             timed = x.dtype == torch.float32 and label in SHAPES
             esize = x.element_size()
-            pmin, pmax = qops.minmax_blocks(x)
-            rmin, rmax = qref.minmax_blocks_ref(x)
+            mn, mx = qops.minmax_blocks(x)
+            rmn, rmx = qref.minmax_blocks_ref(x)
+            amn, amx = ordered_aminmax(x.float())
             worst["minmax_blocks"] = max(
-                worst["minmax_blocks"], float((pmin - rmin).abs().max()),
-                float((pmax - rmax).abs().max()))
-            check(same_bits(pmin, rmin) and same_bits(pmax, rmax),
-                  f"K6a partials {label} {x.dtype}")
-            mn, mx = torch.amin(pmin), torch.amax(pmax)
+                worst["minmax_blocks"], float((mn - rmn).abs()),
+                float((mx - rmx).abs()))
+            check(same_bits(mn, rmn) and same_bits(mx, rmx)
+                  and same_bits(mn, amn) and same_bits(mx, amx),
+                  f"K6a range {label} {x.dtype}: ({float(mn)!r}, "
+                  f"{float(mx)!r}) against ({float(amn)!r}, {float(amx)!r})")
             if timed:
                 rows.append(dict(
                     kernel="minmax_blocks", shape=label, bits=None,
@@ -1158,7 +1188,7 @@ def check_threelaunch_kernels(torch, results, base, params):
                                  flush),
                     plain_ms=device_ms(torch, lambda: qref.minmax_blocks_ref(
                         x), flush, reps=7),
-                    bound_ms=bound_ms(esize * n + 8 * pmin.numel()),
+                    bound_ms=bound_ms(esize * n + 8),
                     library_ms=device_ms(torch, lambda: torch.aminmax(x),
                                          flush)))
                 r = rows[-1]
@@ -1166,9 +1196,8 @@ def check_threelaunch_kernels(torch, results, base, params):
                       f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}"
                       f", aminmax {r['library_ms']:.4f})")
             for bits in K6_BITS:
-                scale = affine_scale(mn, mx, bits)
-                codes = qops.quantize_blocks(x, mn, scale, bits)
-                want = qref.quantize_blocks_ref(x, mn, scale, bits)
+                codes = qops.quantize_blocks(x, mn, mx, bits)
+                want = qref.quantize_blocks_ref(x, mn, mx, bits)
                 worst["quantize_blocks"] = max(
                     worst["quantize_blocks"], float(
                         (codes.int() - want.int()).abs().max()))
@@ -1197,9 +1226,9 @@ def check_threelaunch_kernels(torch, results, base, params):
                 rows.append(dict(
                     kernel="quantize_blocks", shape=label, bits=bits,
                     ms=device_ms(torch, lambda: qops.quantize_blocks(
-                        x, mn, scale, bits), flush),
+                        x, mn, mx, bits), flush),
                     plain_ms=device_ms(torch, lambda: qref.quantize_blocks_ref(
-                        x, mn, scale, bits), flush, reps=7),
+                        x, mn, mx, bits), flush, reps=7),
                     bound_ms=bound_ms(esize * n + 8 + wire),
                     library_ms=None))
                 if bits <= 4:
@@ -1224,21 +1253,38 @@ def check_threelaunch_kernels(torch, results, base, params):
                 print(f"  {label:5s} {bits:2d} bits  " + "  ".join(
                     f"{r['kernel']} {r['ms']:.4f} ms" for r in last)
                     + f" (K1 {last[-1]['fused_encode_ms']:.4f} ms)")
-    # Warm device time per call at the stem boundary, 8 bits (K6c at 4).
-    x = inputs["stem"]
-    mn, mx = torch.amin(x), torch.amax(x)
-    scale8 = affine_scale(mn, mx, 8)
-    calls = {"minmax_blocks": (None, lambda: qops.minmax_blocks(x)),
-             "quantize_blocks": (8, lambda: qops.quantize_blocks(
-                 x, mn, scale8, 8))}
-    codes4 = qops.quantize_blocks(x, mn, affine_scale(mn, mx, 4), 4)
-    calls["pack4_blocks"] = (4, lambda: qops.pack4_blocks(codes4))
-    for name, (bits, fn) in calls.items():
-        r = next(r for r in rows if r["kernel"] == name
-                 and r["shape"] == "stem" and r["bits"] == bits)
-        r["profiled_ms"], r["device_kernels"] = profiled_ms(torch, fn)
-        print(f"  {name} warm {r['profiled_ms']} ms a call; device kernels "
-              f"a call: {r['device_kernels']}")
+
+    def row(kernel, bits):
+        return next(r for r in rows if r["kernel"] == kernel
+                    and r["shape"] == "stem" and r["bits"] == bits)
+
+    # Warm device time and device operations a call at the stem boundary,
+    # 8 bits (K6c at 4): one kernel each and no memset; the chain runs its
+    # kernels and nothing else (at most one memset would be allowed).
+    x = inputs["stem"][0]
+    mn, mx = qops.minmax_blocks(x)
+    codes4 = qops.quantize_blocks(x, mn, mx, 4)
+    profile_rows(torch, [row("minmax_blocks", None),
+                         row("quantize_blocks", 8), row("pack4_blocks", 4)],
+                 {"minmax_blocks": lambda: qops.minmax_blocks(x),
+                  "quantize_blocks": lambda: qops.quantize_blocks(
+                      x, mn, mx, 8),
+                  "pack4_blocks": lambda: qops.pack4_blocks(codes4)},
+                 one_kernel=K6_KERNELS)
+    for bits in (8, 4):
+        r = row("threelaunch_chain", bits)
+        r["profiled_ms"], ops = profiled_ms(
+            torch, lambda: qops.quantize_pack_threelaunch(x, bits))
+        r["device_kernels"] = ops
+        kernels = [v for k, v in ops.items() if not k.startswith("Memset")]
+        sets = sum(v for k, v in ops.items() if k.startswith("Memset"))
+        want = 3 if bits <= 4 else 2
+        print(f"  chain {bits} bits: {r['ms']:.4f} ms cold (K1 "
+              f"{r['fused_encode_ms']:.4f}), warm {r['profiled_ms']} ms; "
+              f"device operations a call: {ops}")
+        check(kernels == [1] * want and sets <= 1,
+              f"K6 chain at {bits} bits: {ops} device operations a call, "
+              f"not {want} kernels and at most one memset")
     # The chain's own path: the user's call on the served boundary, with
     # every counter set to 0 just before and read just after.
     qops.reset_launch_counts()

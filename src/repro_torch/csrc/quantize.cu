@@ -39,9 +39,9 @@
 // stages, the rest is read a second time after the exchange (from L2 where
 // it fits), in the same launch. The range folds on integer order keys
 // (ranges.cuh; one redux.sync a warp) and the codes round by a float add
-// (quant_code): with a compare-and-select fold and rintf / float-to-int
-// conversions both phases are instruction-bound on the H100 and take
-// about twice as long warm.
+// (quant_code, codes.cuh): with a compare-and-select fold and rintf /
+// float-to-int conversions both phases are instruction-bound on the H100
+// and take about twice as long warm.
 // Shares start on multiples of 64 elements, so no code byte is split
 // between blocks at <= 4 bits; the block that owns a sample's last byte at
 // odd n reads element 0 for the repeated high nibble. A share's staged
@@ -73,6 +73,7 @@
 
 #include <type_traits>
 
+#include "codes.cuh"
 #include "ranges.cuh"
 
 namespace cg = cooperative_groups;
@@ -80,28 +81,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float load_f32(const float* p, long long i) {
-  return p[i];
-}
-
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p,
-                                          long long i) {
-  return __bfloat162float(p[i]);
-}
-
-// clip(rint((v - mn) * scale), 0, levels). The clip comes first (the same
-// code for every input, NaN included, which maps to 0); then adding 1.5 *
-// 2^23 rounds half to even, exactly below 2^22, and leaves the integer in
-// the low bits. Float subtract, multiply and add run at the full rate,
-// where rintf and a float-to-int conversion would take the SM's 16-a-clock
-// conversion pipe twice an element.
-__device__ __forceinline__ unsigned quant_code(float v, float mn, float scale,
-                                               float levels) {
-  const float y =
-      fminf(fmaxf(__fmul_rn(__fsub_rn(v, mn), scale), 0.0f), levels);
-  return __float_as_uint(__fadd_rn(y, 12582912.0f)) - 0x4B400000u;
-}
 
 // ---------------------------------------------------------------------------
 // K1
@@ -115,34 +94,6 @@ constexpr long long kShareUnit = 64;
 // Variants (ops.py FE_VARIANTS).
 constexpr int kSolo = 0;
 constexpr int kGrid = 1;
-
-// One 16-byte load of the input: its elements and their fold.
-template <typename T>
-struct In;
-
-template <>
-struct In<float> {
-  static constexpr int kVec = 4;
-  __device__ static void fold(const uint4& w, KeyRange& r) {
-    r.add(__uint_as_float(w.x));
-    r.add(__uint_as_float(w.y));
-    r.add(__uint_as_float(w.z));
-    r.add(__uint_as_float(w.w));
-  }
-};
-
-template <>
-struct In<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void fold(const uint4& w, KeyRange& r) {
-    const unsigned words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      r.add(__uint_as_float(words[i] << 16));
-      r.add(__uint_as_float(words[i] & 0xFFFF0000u));
-    }
-  }
-};
 
 // A thread's group of K1 outputs: kElems elements whose kUnits codes are
 // one store. MODE 0: 8 elements -> 4 nibble-packed bytes; MODE 1: 8
@@ -271,7 +222,7 @@ fused_encode_kernel(const T* __restrict__ x, long long n, int k,
     for (int u = 0; u < kEncUnroll; ++u) {
       const long long v = v0 + static_cast<long long>(u) * blockDim.x;
       if (v < nv) {
-        In<T>::fold(w[u], range);
+        fold_vec<T>(w[u], range);
         const long long p = va + v * V - base;
         if (p < cap) *reinterpret_cast<uint4*>(s + p) = w[u];
       }

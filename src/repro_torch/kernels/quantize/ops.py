@@ -1,6 +1,6 @@
 """Public wrappers of the quantize kernels: K1 (encode) and K2 (decode)
 per tensor, K4 (encode) and K5 (decode) per channel, and the three-launch
-encode chain K6a (range partials), K6b (quantize), K6c (nibble pack).
+encode chain K6a (range), K6b (quantize), K6c (nibble pack).
 
 Dispatch rule, the same for every kernel wrapper of the port: a CPU tensor
 runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor launches the
@@ -31,11 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import (
-    affine_scale,
     dequant_recip,
     dequant_step,
-    ordered_amax,
-    ordered_amin,
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.counters import (  # noqa: F401  (re-exported)
@@ -48,7 +45,6 @@ from repro_torch.kernels.quantize import ref
 from repro_torch.kernels.quantize.ref import (
     channel_dims,
     code_dtype,
-    minmax_chunk,
     perchannel_words,
     wire_len,
 )
@@ -599,47 +595,82 @@ def _flat_input(x: torch.Tensor, what: str) -> torch.Tensor:
     return x.reshape(-1).contiguous()
 
 
+def _vectors(xf: torch.Tensor) -> int:
+    """16-byte loads that cover the flat input ``xf``."""
+    return -(-xf.numel() * xf.element_size() // 16)
+
+
+# K6a reads an input of at most this many bytes with one block and a plain
+# launch (two rounds of its loads): a cooperative launch costs ~1 us more
+# on the H100 (18 KB: 7.9 against 6.9 us cold), which one block's loads
+# outrun only above this.
+K6A_SOLO_BYTES = 32 << 10
+
+
+@functools.lru_cache(maxsize=None)
+def _minmax_resident(device_index: int, in_bf16: bool) -> int:
+    """Blocks of K6a's cooperative grid on the card: those it holds at
+    once, at most two an SM."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        fn = _fn("threelaunch", "jalad_minmax_resident",
+                 [_I, ctypes.POINTER(ctypes.c_int)])
+        build.check(fn(int(in_bf16), ctypes.byref(out)),
+                    "minmax_blocks occupancy")
+    return out.value
+
+
 def minmax_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6a: a tensor of n >= 1 elements -> per-block (min, max) partials,
-    two (P,) float32 tensors (:func:`ref.minmax_blocks_ref` says which
-    elements each block covers). The chain folds them on the device."""
+    """K6a: a tensor of n >= 1 elements -> its ``(mn, mx)``, two 0-d
+    float32 tensors on its device, in the reference's order (``-0.0 <
+    +0.0``), as the reference's ``minmax_blocks`` returns them. One launch
+    that folds every block's range itself: one block up to
+    ``K6A_SOLO_BYTES``, a cooperative grid above."""
     if x.device.type == "cpu":
         return ref.minmax_blocks_ref(x)
     xf = _flat_input(x, "minmax_blocks")
-    n = xf.numel()
-    chunk = minmax_chunk(n)
-    parts = -(-n // chunk)
-    pmin = torch.empty((parts,), dtype=torch.float32, device=xf.device)
-    pmax = torch.empty_like(pmin)
+    in_bf16 = xf.dtype == torch.bfloat16
+    vectors = _vectors(xf)
+    if 16 * vectors <= K6A_SOLO_BYTES:
+        blocks = 1
+    else:
+        index = (xf.device.index if xf.device.index is not None
+                 else torch.cuda.current_device())
+        blocks = min(_grid(vectors, 1), _minmax_resident(index, in_bf16))
+    partials = torch.empty((blocks, 2), dtype=torch.int32, device=xf.device)
+    out = torch.empty((2,), dtype=torch.float32, device=xf.device)
     fn = _fn("threelaunch", "jalad_minmax_blocks",
-             [_P, _I, _L, _L, _I, _P, _P, _P])
-    status = fn(_ptr(xf), int(xf.dtype == torch.bfloat16), n, chunk, parts,
-                _ptr(pmin), _ptr(pmax), _stream())
+             [_P, _I, _L, _I, _P, _P, _P])
+    status = fn(_ptr(xf), int(in_bf16), xf.numel(), blocks, _ptr(partials),
+                _ptr(out), _stream())
     build.check(status, "minmax_blocks")
     bump("minmax_blocks")
-    return pmin, pmax
+    return out[0], out[1]
 
 
-def quantize_blocks(x: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
+def quantize_blocks(x: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
                     bits: int) -> torch.Tensor:
-    """K6b: a tensor of n >= 1 elements + 0-d float32 (mn, scale) on its
-    device -> (n,) codes, u8 at bits <= 8, u16 above. The kernel reads
-    ``mn`` and ``scale`` through pointers: no host sync."""
+    """K6b: a tensor of n >= 1 elements + its 0-d float32 ``(mn, mx)`` on
+    its device -> (n,) codes ``clip(round((x - mn) * scale), 0, 2^c -
+    1)``, u8 at bits <= 8, u16 above, with the reference's ``scale =
+    (2^c - 1) / (mx - mn)`` (0 where ``mx == mn``) taken in the kernel. The
+    kernel reads ``mn`` and ``mx`` through pointers: no host sync."""
     _check_bits(bits)
     if x.device.type == "cpu":
-        return ref.quantize_blocks_ref(x, mn, scale, bits)
+        return ref.quantize_blocks_ref(x, mn, mx, bits)
     xf = _flat_input(x, "quantize_blocks")
-    mn = mn.to(torch.float32).reshape(()).contiguous()
-    scale = scale.to(torch.float32).reshape(()).contiguous()
-    if mn.device != xf.device or scale.device != xf.device:
-        raise ValueError("quantize_blocks: mn and scale must lie on the "
+    mn = mn.to(torch.float32).reshape(())
+    mx = mx.to(torch.float32).reshape(())
+    if mn.device != xf.device or mx.device != xf.device:
+        raise ValueError("quantize_blocks: mn and mx must lie on the "
                          "input's device")
     n = xf.numel()
     codes = torch.empty((n,), dtype=code_dtype(bits), device=xf.device)
     fn = _fn("threelaunch", "jalad_quantize_blocks",
              [_P, _I, _L, _P, _P, _I, _P, _I, _P])
     status = fn(_ptr(xf), int(xf.dtype == torch.bfloat16), n, _ptr(mn),
-                _ptr(scale), bits, _ptr(codes), _grid(n, 1), _stream())
+                _ptr(mx), bits, _ptr(codes), _grid(_vectors(xf), 1),
+                _stream())
     build.check(status, "quantize_blocks")
     bump("quantize_blocks")
     return codes
@@ -669,17 +700,16 @@ def pack4_blocks(codes: torch.Tensor) -> torch.Tensor:
 def quantize_pack_threelaunch(x: torch.Tensor, bits: int
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """The three-launch edge encode: K6a range partials (folded with
-    ``ordered_amin`` / ``ordered_amax`` on the device), K6b quantize, then
-    K6c pack at bits <= 4, the codes making a round trip through device
-    memory in between. Returns ``(flat wire codes, mn, mx)``, byte-identical to
+    """The three-launch edge encode: K6a the range, K6b quantize, then K6c
+    pack at bits <= 4, the codes making a round trip through device memory
+    in between; nothing else runs on the device but the allocations.
+    Returns ``(flat wire codes, mn, mx)``, byte-identical to
     :func:`quantize_pack` (K1); 3 launches at bits <= 4, 2 above."""
     _check_bits(bits)
     if x.numel() == 0:
         return quantize_pack(x, bits)
-    pmin, pmax = minmax_blocks(x)
-    mn, mx = ordered_amin(pmin), ordered_amax(pmax)
-    codes = quantize_blocks(x, mn, affine_scale(mn, mx, bits), bits)
+    mn, mx = minmax_blocks(x)
+    codes = quantize_blocks(x, mn, mx, bits)
     if bits <= 4:
         codes = pack4_blocks(codes)
     return codes, mn, mx

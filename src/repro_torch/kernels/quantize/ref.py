@@ -19,8 +19,6 @@ from repro_torch.core.quantization import (
     affine_scale,
     dequant_step,
     fma_f32,
-    ordered_amax,
-    ordered_amin,
     ordered_aminmax,
     pack_bits,
     unpack_bits,
@@ -136,44 +134,25 @@ def pc_decode_ref(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Three-launch encode chain: K6a range partials, K6b quantize, K6c pack
+# Three-launch encode chain: K6a range, K6b quantize, K6c pack
 # ---------------------------------------------------------------------------
-
-# K6a's blocks cover contiguous chunks of a multiple of this many elements
-# (256 threads x 4), about 1056 blocks at most (132 SMs x 8).
-MINMAX_CHUNK_UNIT = 1024
-MINMAX_MAX_PARTS = 1056
-
-
-def minmax_chunk(n: int) -> int:
-    """Elements per K6a block for ``n >= 1`` elements: every one of the
-    ``ceil(n / chunk)`` blocks covers at least one element."""
-    want = -(-n // MINMAX_MAX_PARTS)
-    return -(-want // MINMAX_CHUNK_UNIT) * MINMAX_CHUNK_UNIT
 
 
 def minmax_blocks_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6a: flat (n,) float, n >= 1 -> per-block (min, max) partials, two
-    (P,) float32 tensors, block p covering elements ``[p * chunk, (p + 1)
-    * chunk)`` of :func:`minmax_chunk`."""
-    xf = x.reshape(-1).to(torch.float32)
-    n = xf.numel()
-    chunk = minmax_chunk(n)
-    parts = -(-n // chunk)
-    pad = parts * chunk - n
-    lo = torch.cat([xf, xf.new_full((pad,), float("inf"))])
-    hi = torch.cat([xf, xf.new_full((pad,), float("-inf"))])
-    return (ordered_amin(lo.reshape(parts, chunk), 1),
-            ordered_amax(hi.reshape(parts, chunk), 1))
+    """K6a: a float tensor of n >= 1 elements -> its ``(mn, mx)``, two 0-d
+    float32 tensors, in the reference's order (``-0.0 < +0.0``)."""
+    return ordered_aminmax(x.reshape(-1).to(torch.float32))
 
 
-def quantize_blocks_ref(x: torch.Tensor, mn: torch.Tensor,
-                        scale: torch.Tensor, bits: int) -> torch.Tensor:
-    """K6b: flat (n,) float + scalar (mn, scale) -> (n,) codes
-    ``clip(round((x - mn) * scale), 0, 2^c - 1)``, u8 at c <= 8, u16
-    above."""
+def quantize_blocks_ref(x: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+                        bits: int) -> torch.Tensor:
+    """K6b: a float tensor of n elements + 0-d float32 ``(mn, mx)`` ->
+    (n,) codes ``clip(round((x - mn) * scale), 0, 2^c - 1)`` with the
+    scale of :func:`affine_scale`, u8 at c <= 8, u16 above."""
+    mn, mx = mn.to(torch.float32), mx.to(torch.float32)
     q = torch.clamp(torch.round((x.reshape(-1).to(torch.float32) - mn)
-                                * scale), 0, (1 << bits) - 1)
+                                * affine_scale(mn, mx, bits)),
+                    0, (1 << bits) - 1)
     return q.to(torch.int32).to(code_dtype(bits))
 
 

@@ -271,9 +271,9 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"repro_torch: model family {cfg.family!r} is not yet ported "
-            "(ROADMAP.md queue 1, item 4); the CNN testbed "
-            "(vgg16/19, resnet50/101) and the dense, moe, ssm and hybrid "
-            "decoders are")
+            "(vlm: the vision prefix and M-RoPE; audio: the encoder and "
+            "cross-attention blocks); the CNN testbed (vgg16/19, "
+            "resnet50/101) and the dense, moe, ssm and hybrid decoders are")
     if cfg.family == "cnn":
         return Model(cfg=cfg, specs=cnn_lib.cnn_param_specs(cfg))
     return Model(cfg=cfg, specs=tf_lib.param_specs(cfg))

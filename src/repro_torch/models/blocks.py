@@ -51,8 +51,7 @@ def _check_kind(kind: str) -> None:
     if kind in _UNPORTED:
         raise NotImplementedError(
             f"repro_torch: block kind {kind!r}, {_UNPORTED[kind]}, is not "
-            "ported yet (ROADMAP.md queue 1, item 4: the LM stack's other "
-            "families)")
+            "ported yet")
     if kind not in _ATTN and kind not in _RECURRENT:
         raise ValueError(f"unknown block kind {kind!r}")
 

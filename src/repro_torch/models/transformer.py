@@ -89,8 +89,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     ``shared_attn`` block of a hybrid model."""
     if cfg.is_encdec or cfg.family == "vlm":
         raise NotImplementedError(
-            f"repro_torch: family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 4)")
+            f"repro_torch: family {cfg.family!r} is not ported yet: "
+            "this module has no vision prefix or M-RoPE (vlm) and no "
+            "encoder (audio)")
     dt_ = cfg.param_dtype
     specs: Dict[str, Any] = {
         "embed": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), dt_,

@@ -63,11 +63,12 @@ from repro_torch.serving.pipeline import StageTimeline
 PlanKey = Tuple[int, int, str]            # (point, bits, codec)
 
 _MESH_NOT_PORTED = (
-    "FleetServer(cloud_mesh=...): the meshed cloud worker is not ported "
-    "yet (ROADMAP.md queue 1 item 4)")
+    "FleetServer(cloud_mesh=...): the meshed cloud "
+    "(serving/meshed.py, MeshedCloudWorker) is not ported yet")
 _STREAMS_NOT_PORTED = (
     "FleetServer token streaming (attach_stream / step_streams / "
-    "run_streams) is not ported yet (ROADMAP.md queue 1 item 3)")
+    "run_streams, the fleet's hooks into serving/streaming.py) is not "
+    "ported yet")
 
 
 class FleetDevice:
@@ -190,8 +191,8 @@ class FleetServer:
     # per serving wave. False: the per-device AdaptationController loop,
     # kept as the reference path the vectorized one is pinned against.
     vectorized: bool = True
-    # A mesh to shard the shared cloud worker across: not ported yet
-    # (ROADMAP.md queue 1 item 4); anything but None raises.
+    # A mesh to shard the shared cloud worker across: the meshed cloud
+    # (serving/meshed.py) is not ported yet; anything but None raises.
     cloud_mesh: Optional[Any] = None
     runners: Optional[RunnerCache] = None
     devices: List[FleetDevice] = field(default_factory=list)

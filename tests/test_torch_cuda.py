@@ -522,30 +522,61 @@ def test_perchannel_codec_matches_cpu(cuda):
             assert torch.equal(back.cpu(), codec.decode(cpu, device="cpu"))
 
 
+def _k6_inputs(cuda):
+    """K6's inputs, each in float32 and bfloat16: the sizes of the main
+    path and either side of K6a's one-block limit, one that starts off
+    every 16-byte boundary (a view one element in), and zeros only, one
+    sign near the start and the other everywhere else (range (-0.0,
+    +0.0))."""
+    solo = qops.K6A_SOLO_BYTES // 4
+    xs = [torch.relu(torch.randn(n, device=cuda))
+          for n in (1, 4551, solo, solo + 1, 70_001, 4 * 64 * 112 * 112)]
+    zeros = torch.zeros(4 * 64 * 112 * 112, device=cuda)
+    zeros[5] = -0.0
+    xs += [zeros, -zeros]
+    out = [t for x in xs for t in (x, x.to(torch.bfloat16))]
+    x = torch.relu(torch.randn(70_002, device=cuda))
+    return out + [x[1:], x.to(torch.bfloat16)[1:]]
+
+
 @pytest.mark.parametrize("bits", (2, 3, 4, 8, 12, 16))
 def test_threelaunch_kernels_match_plain_and_fused_encode(cuda, bits):
-    for n in (1, 4551, 70_001, 4 * 64 * 112 * 112):
-        x = torch.relu(torch.randn(n, device=cuda))
-        for xx in (x, x.to(torch.bfloat16)):
-            with qops.count_launches() as box:
-                pmin, pmax = qops.minmax_blocks(xx)
-            assert box.counts["minmax_blocks"] == 1
-            rmin, rmax = qref.minmax_blocks_ref(xx)
-            assert torch.equal(pmin, rmin) and torch.equal(pmax, rmax)
-            mn, mx = torch.amin(pmin), torch.amax(pmax)
-            scale = tq.affine_scale(mn, mx, bits)
-            codes = qops.quantize_blocks(xx, mn, scale, bits)
-            assert torch.equal(codes,
-                               qref.quantize_blocks_ref(xx, mn, scale, bits))
-            if bits <= 4:
-                assert torch.equal(qops.pack4_blocks(codes),
-                                   qref.pack4_blocks_ref(codes))
-            with qops.count_launches() as box:
-                chain = qops.quantize_pack_threelaunch(xx, bits)
-            assert sum(box.counts.values()) == (3 if bits <= 4 else 2)
-            for got, want in zip(chain, qops.quantize_pack(xx, bits)):
-                assert torch.equal(got, want)
+    for xx in _k6_inputs(cuda):
+        with qops.count_launches() as box:
+            mn, mx = qops.minmax_blocks(xx)
+        assert box.counts["minmax_blocks"] == 1
+        assert mn.shape == mx.shape == ()
+        rmn, rmx = qref.minmax_blocks_ref(xx)
+        assert _same_bits(mn, rmn) and _same_bits(mx, rmx)
+        amn, amx = tq.ordered_aminmax(xx.float())
+        assert _same_bits(mn, amn) and _same_bits(mx, amx)
+        codes = qops.quantize_blocks(xx, mn, mx, bits)
+        assert torch.equal(codes, qref.quantize_blocks_ref(xx, mn, mx, bits))
+        if bits <= 4:
+            assert torch.equal(qops.pack4_blocks(codes),
+                               qref.pack4_blocks_ref(codes))
+        with qops.count_launches() as box:
+            chain = qops.quantize_pack_threelaunch(xx, bits)
+        assert sum(box.counts.values()) == (3 if bits <= 4 else 2)
+        fused = qops.quantize_pack(xx, bits)
+        assert torch.equal(chain[0], fused[0])
+        assert _same_bits(chain[1], fused[1])
+        assert _same_bits(chain[2], fused[2])
     torch.cuda.synchronize()
+
+
+def test_threelaunch_chain_runs_only_its_kernels(cuda):
+    """The chain's device work is its kernels, K6a, K6b and K6c at <= 4
+    bits, one launch each a call, and nothing else: no memset, no PyTorch
+    operation between them."""
+    x = torch.relu(torch.randn((4, 64, 112, 112), device=cuda))
+    for bits, names in ((8, ("minmax", "quantize")),
+                        (4, ("minmax", "quantize", "pack4"))):
+        ops = _device_kernels(lambda: qops.quantize_pack_threelaunch(x,
+                                                                     bits))
+        assert list(ops.values()) == [1] * len(names), (bits, ops)
+        for name in names:
+            assert any(name in k for k in ops), (bits, name, ops)
 
 
 @pytest.mark.parametrize("codec", ("bitpack", "huffman", "perchannel"))

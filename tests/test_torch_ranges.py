@@ -3,13 +3,13 @@
 XLA takes a minimum in the order in which ``-0.0 < +0.0`` and a maximum in
 the same order, so ``jnp.min`` of a sample holding both zeros is ``-0.0``
 and ``jnp.max`` is ``+0.0``, whichever comes first. The port's ranges must
-equal the reference's bit for bit: every codec's blob ``x_min`` / ``x_max``
-compared by bytes, and the plain versions of K1 (per-sample), K4
-(per-channel) and K6a (range partials, and the chain's fold) compared by
-bits with ``jnp.min`` / ``jnp.max``. Payloads and decodes do not depend on
-the sign (``x - (-0.0)`` and ``x - (+0.0)`` give the same codes), so only
-the headers could differ. ``test_torch_cuda.py`` holds the CUDA kernels'
-ranges against the plain versions on the card.
+equal the reference's bit for bit: every codec's blob ``x_min`` /
+``x_max`` compared by bytes, and the plain versions of K1 (per-sample), K4
+(per-channel) and K6a (the range of the whole input, and the chain's)
+compared by bits with ``jnp.min`` / ``jnp.max``. Payloads and decodes do
+not depend on the sign (``x - (-0.0)`` and ``x - (+0.0)`` give the same
+codes), so only the headers could differ. ``test_torch_cuda.py`` holds the
+CUDA kernels' ranges against the plain versions on the card.
 """
 import numpy as np
 import pytest
@@ -94,23 +94,19 @@ def test_plain_kernel_ranges_match_jnp_by_bits(pattern):
     _, mn, mx = qref.pc_encode_ref(torch.from_numpy(x4), 8, 0)
     np.testing.assert_array_equal(_bits(mn), _bits(jnp.min(x4, axis=(2, 3))))
     np.testing.assert_array_equal(_bits(mx), _bits(jnp.max(x4, axis=(2, 3))))
-    # K6a: partials of chunks of MINMAX_CHUNK_UNIT elements, then the
-    # chain's fold. Chunk 1 holds no zero; chunks 0 and 2 hold one zero
-    # each, in the pattern's order, so the fold meets partials of both
-    # signs.
-    unit = qref.MINMAX_CHUNK_UNIT
+    # K6a: in chunks of 1,024 elements, chunk 1 holds no zero and chunks 0
+    # and 2 hold one zero each, in the pattern's order, so the two zeros
+    # lie far apart.
+    unit = 1024
     flat = _tiled(pattern, 5 * unit + 37)
     flat[unit:2 * unit] = rng.uniform(3, 4, unit).astype(np.float32)
     zeros = [z for z in PATTERNS[pattern] if z == 0]
     for chunk, z in ((0, zeros[0]), (2, zeros[1])):
         part = flat[chunk * unit:(chunk + 1) * unit]
         part[part == 0] = z
-    pmin, pmax = qref.minmax_blocks_ref(torch.from_numpy(flat))
-    chunks = [flat[i:i + unit] for i in range(0, flat.size, unit)]
-    np.testing.assert_array_equal(
-        _bits(pmin), _bits(np.stack([jnp.min(c) for c in chunks])))
-    np.testing.assert_array_equal(
-        _bits(pmax), _bits(np.stack([jnp.max(c) for c in chunks])))
+    mn, mx = qref.minmax_blocks_ref(torch.from_numpy(flat))
+    assert _bits(mn) == _bits(jnp.min(flat))
+    assert _bits(mx) == _bits(jnp.max(flat))
     for bits in (4, 8):
         _, mn, mx = qops.quantize_pack_threelaunch(torch.from_numpy(flat),
                                                    bits)
