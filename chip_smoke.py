@@ -60,6 +60,23 @@ NVIDIA card.
    exactly those kernels and at most one memset a call. Its cold time is
    printed beside K1's. Then drives ``quantize_pack_threelaunch`` on the
    served boundary with the counters set to 0 before and read after.
+   K6c is also held on that boundary's 4-bit codes taken 1 to 15 bytes
+   off their 16-byte boundary (its byte-wise branch).
+5b. The paper's RL channel removal on the same served ``stem_pool``
+   boundary, counters set to 0 before and read after: a
+   ``ChannelRemovalPolicy`` over its 64 channels at ``JaladConfig``'s
+   budget trains for ``CR_STEPS`` steps, each ``evaluate(mask)`` the top-1
+   disagreement of the port's tail on the masked boundary with the tail on
+   the unmasked one, on the card; its deterministic mask is applied with
+   ``apply_channel_mask`` and both boundaries are encoded by ``compress``
+   (K3) at ``CR_BITS``. Prints the kept channels, the bytes unmasked and
+   masked (Huffman and ``transfer_size_bytes``), the disagreement and the
+   phase's wall time. Fails unless the masked boundary equals the CPU run
+   of ``apply_channel_mask`` bit for bit, ``compress``'s payload equals the
+   Huffman codec's blob payload and the CPU run's, ``decompress`` is
+   within half a quantization step (and 8 float32 ulps of the range), and
+   ``transfer_size_bytes`` equals the exact Huffman size of the decoded
+   codes, the CPU run's, and lies within 64 bytes of ``nbytes``.
 6. Serves full-width ResNet-50 through the fleet server: D = 4
    heterogeneous edges (TX2, TK1, a mid and a fast edge) against one shared
    cloud under a flash-crowd trace (``make_trace``), batch 4 per request,
@@ -327,6 +344,10 @@ MOE_SMALL_RTOL = 1e-5
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
 K6_KERNELS = ("minmax_blocks", "quantize_blocks", "pack4_blocks")
+# Channel removal (step 5b): REINFORCE steps of the policy (each one tail
+# forward of the served request on the card) and the width it compresses at.
+CR_STEPS = 300
+CR_BITS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -1122,26 +1143,34 @@ def serve_pipeline(torch, results, base, params):
     return counts
 
 
-def check_threelaunch_kernels(torch, results, base, params):
-    """Step 5: K6a, K6b, K6c against their plain versions, K6a's range by
-    bits against ``ordered_aminmax``, the chain against K1 and its device
-    operations a call, then the chain's own path on a served boundary."""
-    from repro_torch.core.quantization import ordered_aminmax
+def served_boundary(torch, base, params):
+    """The ``K6_POINT`` boundary of one served request (batch 4) on the
+    card, and the point's index."""
     from repro_torch.data.synthetic import ImageStream
-    from repro_torch.kernels.quantize import ops as qops
-    from repro_torch.kernels.quantize import ref as qref
     from repro_torch.models.api import batch_to
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     point = base.model.decoupling_points().index(K6_POINT)
     cfg = base.model.cfg
     batch = ImageStream(cfg.num_classes, 4, cfg.image_size,
                         seed=300).batches(1)[0]
     with torch.no_grad():
-        served = base.model.run_head(params, batch_to(batch, dev),
+        served = base.model.run_head(params, batch_to(batch, "cuda"),
                                      point).contiguous()
+    return served, point
+
+
+def check_threelaunch_kernels(torch, results, base, params):
+    """Step 5: K6a, K6b, K6c against their plain versions, K6a's range by
+    bits against ``ordered_aminmax``, the chain against K1 and its device
+    operations a call, then the chain's own path on a served boundary."""
+    from repro_torch.core.quantization import ordered_aminmax
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    served, _ = served_boundary(torch, base, params)
 
     def both(x):
         return x, x.to(torch.bfloat16)
@@ -1258,6 +1287,17 @@ def check_threelaunch_kernels(torch, results, base, params):
         return next(r for r in rows if r["kernel"] == kernel
                     and r["shape"] == "stem" and r["bits"] == bits)
 
+    # K6c's byte-wise branch: the served boundary's 4-bit codes in a buffer
+    # 1 to 15 bytes off a 16-byte boundary.
+    codes = qops.quantize_blocks(served, *qops.minmax_blocks(served), 4)
+    n = codes.numel()
+    buf = torch.empty(n + 16, dtype=torch.uint8, device=dev)
+    for off in range(1, 16):
+        view = buf[off:off + n]
+        view.copy_(codes)
+        packed = qops.pack4_blocks(view)
+        check(torch.equal(packed, qref.pack4_blocks_ref(codes)),
+              f"K6c bytes {K6_POINT} codes {off} bytes off 16")
     # Warm device time and device operations a call at the stem boundary,
     # 8 bits (K6c at 4): one kernel each and no memset; the chain runs its
     # kernels and nothing else (at most one memset would be allowed).
@@ -1300,6 +1340,94 @@ def check_threelaunch_kernels(torch, results, base, params):
     results["threelaunch"] = dict(launches=counts, point=K6_POINT,
                                   shape=list(served.shape))
     return rows, worst, counts
+
+
+def check_channel_removal(torch, results, base, params):
+    """Step 5b: the paper's channel removal on a served boundary, trained
+    on the card, and the masked boundary compressed through K3."""
+    import numpy as np
+    from repro_torch.codec import get_codec
+    from repro_torch.config import JaladConfig
+    from repro_torch.core import channel_removal as cr
+    from repro_torch.core import compression as comp
+    from repro_torch.core import entropy as ent
+    from repro_torch.kernels.quantize import ops as qops
+
+    served, point = served_boundary(torch, base, params)
+    channels = served.shape[1]
+    budget = JaladConfig().channel_removal_budget
+    qops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        top1 = base.model.run_tail(params, served, point).argmax(-1)
+
+        def evaluate(mask):
+            masked = cr.apply_channel_mask(served, mask, axis=1)
+            logits = base.model.run_tail(params, masked, point)
+            return float((logits.argmax(-1) != top1).float().mean())
+
+        policy = cr.train_channel_policy(
+            cr.ChannelRemovalPolicy(channels, removal_budget=budget),
+            evaluate, steps=CR_STEPS)
+        train_s = time.perf_counter() - t0
+        mask = policy.deterministic_mask()
+        disagreement = evaluate(mask)
+    masked = cr.apply_channel_mask(served, mask, axis=1)
+    full = comp.compress(served, CR_BITS)
+    packed = comp.compress(masked, CR_BITS)
+    sizes = (comp.transfer_size_bytes(served, CR_BITS),
+             comp.transfer_size_bytes(masked, CR_BITS))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = qops.launch_counts()
+    kept = np.flatnonzero(mask).tolist()
+    print(f"  policy: {CR_STEPS} steps in {train_s:.2f} s, budget {budget}, "
+          f"kept {len(kept)} of {channels} channels, dropped "
+          f"{np.flatnonzero(~mask).tolist()}; top-1 disagreement "
+          f"{disagreement}")
+    print(f"  {CR_BITS} bits: unmasked {full.nbytes} B (transfer "
+          f"{sizes[0]}), masked {packed.nbytes} B (transfer {sizes[1]}); "
+          f"phase {wall_s:.2f} s on {card_line()}")
+    print(f"channel removal path launches: {counts}")
+    check(counts["huffman_pack"] == 2 and counts["huffman_host_route"] == 0,
+          f"compress did not launch K3 once a call: {counts}")
+    check(len(kept) >= channels - int(budget * channels),
+          f"the mask drops more than the budget: {len(kept)} kept")
+    # Against the plain runs: the CPU's mask, the codec's blob, the CPU's
+    # compress and sizes, the host decode.
+    host = served.cpu()
+    check(same_bits(masked.cpu(), cr.apply_channel_mask(host, mask, axis=1)),
+          "apply_channel_mask on the card differs from its CPU run")
+    blob = get_codec("huffman").encode(masked, CR_BITS)
+    cpu = comp.compress(masked.cpu(), CR_BITS)
+    check(packed.payload == blob.payload == cpu.payload,
+          "compress's payload is not the Huffman codec's / the CPU run's")
+    check(np.float32(packed.x_min).tobytes() == blob.x_min.tobytes()
+          and np.float32(packed.x_max).tobytes() == blob.x_max.tobytes(),
+          "compress's range is not the Huffman codec's")
+    x = masked.cpu().numpy()
+    back = comp.decompress(packed)
+    step = (packed.x_max - packed.x_min) / ((1 << CR_BITS) - 1)
+    tol = step / 2 + 8 * float(np.spacing(np.float32(
+        max(abs(packed.x_min), abs(packed.x_max)))))
+    err = float(np.abs(back - x).max())
+    check(back.shape == x.shape and err <= tol,
+          f"decompress error {err} above half a step ({tol})")
+    exact = ent.huffman_size_bytes(comp.decompress_codes(packed),
+                                   1 << CR_BITS) + 9
+    check(sizes[1] == exact == comp.transfer_size_bytes(masked.cpu(),
+                                                        CR_BITS)
+          and abs(sizes[1] - packed.nbytes) <= 64,
+          f"transfer_size_bytes {sizes[1]}: exact {exact}, nbytes "
+          f"{packed.nbytes}")
+    results["channel_removal"] = dict(
+        point=K6_POINT, shape=list(served.shape), bits=CR_BITS,
+        steps=CR_STEPS, budget=budget, kept=kept,
+        disagreement=disagreement, unmasked_nbytes=full.nbytes,
+        masked_nbytes=packed.nbytes, unmasked_transfer=sizes[0],
+        masked_transfer=sizes[1], decompress_err=err, half_step=tol,
+        train_s=train_s, wall_s=wall_s, launches=counts)
+    return counts
 
 
 def serve_fleet(torch, results, base_params):
@@ -2596,13 +2724,15 @@ def main(argv=None) -> int:
     k6_rows, _, k6_path = step("three-launch chain",
                                check_threelaunch_kernels, base, params)
     rows += k6_rows
+    removal = step("channel removal", check_channel_removal, base, params)
     fleet = step("fleet", serve_fleet, params)
     three = step("three-tier", serve_three_tier, params)
     lm = step("lm serving", serve_lm)
     rnn = step("recurrent lm serving", serve_recurrent_lm)
     moe = step("moe lm serving", serve_moe_lm)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
-             "threelaunch": k6_path, "three_tier": three, "lm_stream": lm,
+             "threelaunch": k6_path, "channel_removal": removal,
+             "three_tier": three, "lm_stream": lm,
              "rnn_stream": rnn, "moe_stream": moe}
 
     def row(kernel, label="stem", bits=8):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's encode kernels K1 (``fused_encode``), K3
-(``huffman_pack``), K4 (``pc_encode``), K6a (``minmax_blocks``) and K6b
-(``quantize_blocks``) and the three-launch chain
+(``huffman_pack``), K4 (``pc_encode``), K6a (``minmax_blocks``), K6b
+(``quantize_blocks``) and K6c (``pack4_blocks``) and the three-launch chain
 (``quantize_pack_threelaunch``) of one checkout on one CUDA card, and the
 Huffman encode's phase 1 (``_hist_ranges``: the ranges and the histogram,
 PyTorch operations on the card) that feeds K3.
@@ -17,8 +17,9 @@ parent. Shapes, widths and clocks are ``chip_smoke.py``'s: K1 and K3 on
 the stem, res5 and odd boundaries taken as one tensor at 2, 4, 8 and 16
 bits, K1 also on the served shapes (``K1_SHAPES``) at 2 and 8 bits; K4
 on the stem, res5, gap and odd boundaries (one sample) at 2, 3, 4, 5, 8
-and 16 bits; K6a, K6b (8 bits) and the chain (4 and 8 bits, held equal to
-K1) on the stem, res5 and odd boundaries. K6a and K6b are called as the
+and 16 bits; K6a, K6b (8 bits), K6c (on K6b's 4-bit codes, held equal
+to its plain version) and the chain (4 and 8 bits, held equal to K1) on
+the stem, res5 and odd boundaries. K6a and K6b are called as the
 checkout defines them: ``minmax_blocks(x)`` returning the folded range or
 per-block partials, ``quantize_blocks(x, mn, mx, bits)`` or ``(x, mn,
 scale, bits)`` with the scale taken beforehand; the chain has one
@@ -51,8 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None)
     ap.add_argument("--only", default="k1,k3,k4,k6",
                     help="comma-separated kernel groups to time (k1: K1; "
-                         "k3: K3 and its phase 1; k4: K4; k6: K6a, K6b, the "
-                         "chain and the flush study)")
+                         "k3: K3 and its phase 1; k4: K4; k6: K6a, K6b, "
+                         "K6c, the chain and the flush study)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     sys.path.insert(0, str(HERE))
@@ -167,7 +168,14 @@ def main(argv=None) -> int:
         k6a = ("minmax_blocks", lambda: qops.minmax_blocks(x), 4 * n + 8)
         k6b = ("quantize_blocks", lambda: qops.quantize_blocks(
             x, mn, third, 8), 4 * n + 8 + n)
-        return k6a, k6b
+        codes4 = qops.quantize_blocks(
+            x, mn, mx if folded else affine_scale(mn, mx, 4), 4)
+        if not torch.equal(qops.pack4_blocks(codes4),
+                           qref.pack4_blocks_ref(codes4)):
+            raise SystemExit(f"K6c differs from its plain version at {label}")
+        k6c = ("pack4_blocks", lambda: qops.pack4_blocks(codes4),
+               n + (n + 1) // 2)
+        return k6a, k6b, k6c
 
     def study_calls(x, k6a, k6b):
         codes, mn, mx = qops.fused_encode(x.reshape(1, -1), 8)
@@ -182,9 +190,10 @@ def main(argv=None) -> int:
         for label, shape in cs.SHAPES.items():
             x = torch.relu(torch.randn(shape, device=dev, generator=gen))
             n = x.numel()
-            k6a, k6b = k6(label, x)
+            k6a, k6b, k6c = k6(label, x)
             timed(k6a[0], label, None, k6a[1], k6a[2])
             timed(k6b[0], label, 8, k6b[1], k6b[2])
+            timed(k6c[0], label, 4, k6c[1], k6c[2])
             for bits in (8, 4):
                 got = qops.quantize_pack_threelaunch(x, bits)
                 want = qops.quantize_pack(x, bits)

@@ -5,12 +5,17 @@ encode to a packed bitstream, decode back with the chunk-LUT decoder.
 
 Its bytes are the wire format both packages share: a payload encoded by
 either decodes in the other.
+
+Beside the codec, the Shannon size estimator (``entropy_bits_per_symbol``,
+``entropy_size_bytes``) in torch, on the codes' own device: the Huffman
+length of an i.i.d. source lies within [H, H + 1) bits a symbol.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _code_lengths(freqs: np.ndarray) -> np.ndarray:
@@ -328,3 +333,42 @@ def huffman_size_from_counts(freqs: np.ndarray,
     lengths = _code_lengths(freqs)
     total_bits = int((freqs * lengths).sum())
     return 6 + num_symbols + (total_bits + 7) // 8
+
+
+def huffman_size_bytes(codes_arr: np.ndarray, num_symbols: int) -> int:
+    """Exact encoded size without materializing the bitstream."""
+    flat = np.asarray(codes_arr, np.int64).reshape(-1)
+    freqs = np.bincount(flat, minlength=num_symbols).astype(np.int64)
+    return huffman_size_from_counts(freqs, num_symbols)
+
+
+# ---------------------------------------------------------------------------
+# Shannon size estimator
+# ---------------------------------------------------------------------------
+
+
+def entropy_bits_per_symbol(codes: torch.Tensor, num_symbols: int
+                            ) -> torch.Tensor:
+    """Empirical Shannon entropy H (bits/symbol) of an integer code array,
+    a 0-d float32 tensor on its device. The counts are a float32
+    scatter-add, as the reference builds them; ``p`` divides tensor by
+    tensor, as the reference's division by the count does."""
+    flat = codes.reshape(-1).to(torch.int64)
+    counts = torch.zeros(num_symbols, dtype=torch.float32,
+                         device=flat.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=flat.device))
+    p = counts / torch.tensor(flat.shape[0], dtype=torch.float32,
+                              device=flat.device)
+    terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)),
+                        torch.zeros_like(p))
+    return -torch.sum(terms)
+
+
+def entropy_size_bytes(codes: torch.Tensor, num_symbols: int
+                       ) -> torch.Tensor:
+    """Shannon lower bound on the Huffman-coded size, plus table header.
+    Huffman actual size lies in [this, this + n/8 bytes)."""
+    n = codes.numel()
+    h = entropy_bits_per_symbol(codes, num_symbols)
+    return (h * n) / 8.0 + 6 + num_symbols

@@ -21,9 +21,11 @@
 //      read, the codes written (4.79 us at 8 bits at the stem, 5.75 us at
 //      16 bits).
 // K6c  nibble pack — replaces `pack4_blocks` (`_pack4_kernel`), at c <= 4
-//      only: byte i = codes[2i] | codes[2i + 1] << 4; an odd count repeats
-//      codes[0] in the last high nibble, as the reference pads its tiles with
-//      the first element. Bound: codes read + bytes written (1.4 us).
+//      only: byte i = codes[2i] | codes[2i + 1] << 4, truncated to 8 bits
+//      as the reference's u8 shift truncates (codes >= 16 included); an odd
+//      count repeats codes[0] in the last high nibble, as the reference pads
+//      its tiles with the first element. Bound: codes read + bytes written
+//      (3.21 + 1.61 MB at the stem boundary at batch 4: 1.44 us).
 //
 // All three move a few bytes per flop, so bytes bound them. K6a and K6b
 // read 16 bytes a load (4 f32 or 8 bf16), 4 loads a thread in flight,
@@ -43,8 +45,14 @@
 // instead of the conversion pipe, and stores the codes of a load as one
 // word (4 to 16 bytes); where the codes do not start aligned as the input
 // does, it stores them one by one.
-// K6c is one output byte a thread, neighbouring threads on neighbouring
-// bytes, so every load and store coalesces.
+// K6c reads 16 codes a load and stores their 8 bytes as one word, kUnroll
+// loads a thread in flight over K6b's grid, so a warp moves whole 128-byte
+// lines (512 bytes in, 256 out, an instruction); a tail of fewer than 16
+// codes is packed one byte a thread by the first threads of the grid. Codes
+// that do not start on a 16-byte boundary (a view into a larger tensor; the
+// chain always hands K6c a fresh allocation) take a byte-wise branch of the
+// same kernel, one output byte a thread, rather than wide loads that would
+// read bytes outside the tensor.
 //
 // Numerics: __fsub_rn / __fmul_rn are never contracted into an FMA, and
 // quant_code rounds half to even as jnp.round does, so the codes are the
@@ -62,8 +70,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-// 16-byte loads a K6a / K6b thread has in flight (ops.py _grid's 4 items
-// a thread).
+// 16-byte loads a K6a / K6b / K6c thread has in flight (ops.py _grid's 4
+// items a thread).
 constexpr int kUnroll = 4;
 
 // The scalar head of the flat input x of n elements: the elements before
@@ -252,14 +260,53 @@ quantize_kernel(const T* __restrict__ x, long long n,
   }
 }
 
-// K6c: grid-stride over the out_n = ceil(n / 2) packed bytes.
+// 16 codes (one 16-byte load) -> their 8 packed bytes (one 8-byte store).
+// In each word, bytes 0 and 2 become lo | hi << 4 truncated to 8 bits (the
+// high nibble is the low nibble of hi, as the reference's u8 shift leaves
+// it); __byte_perm then gathers those bytes of two words into one.
+__device__ __forceinline__ uint2 pack16(const uint4& c) {
+  const unsigned p0 = (c.x & 0x00FF00FFu) | ((c.x >> 4) & 0x00F000F0u);
+  const unsigned p1 = (c.y & 0x00FF00FFu) | ((c.y >> 4) & 0x00F000F0u);
+  const unsigned p2 = (c.z & 0x00FF00FFu) | ((c.z >> 4) & 0x00F000F0u);
+  const unsigned p3 = (c.w & 0x00FF00FFu) | ((c.w >> 4) & 0x00F000F0u);
+  return make_uint2(__byte_perm(p0, p1, 0x6420), __byte_perm(p2, p3, 0x6420));
+}
+
+// K6c: grid (blocks) over the n codes -> out_n = ceil(n / 2) bytes.
 __global__ void __launch_bounds__(kThreads)
 pack4_blocks_kernel(const uint8_t* __restrict__ codes, long long n,
                     uint8_t* __restrict__ out, long long out_n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+  // Out bytes [first, out_n) are made one by one: the tail of fewer than 16
+  // codes where the codes start on a 16-byte boundary, else every byte.
+  long long first = 0;
+  if (((reinterpret_cast<uintptr_t>(codes) & 15) |
+       (reinterpret_cast<uintptr_t>(out) & 7)) == 0) {
+    const long long nv = n / 16;
+    const uint4* cv = reinterpret_cast<const uint4*>(codes);
+    uint2* ov = reinterpret_cast<uint2*>(out);
+    const long long step = static_cast<long long>(gridDim.x) * kThreads *
+                           kUnroll;
+    for (long long v0 = static_cast<long long>(blockIdx.x) * kThreads *
+                            kUnroll + threadIdx.x;
+         v0 < nv; v0 += step) {
+      uint4 w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long v = v0 + u * kThreads;
+        if (v < nv) w[u] = cv[v];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long v = v0 + u * kThreads;
+        if (v < nv) ov[v] = pack16(w[u]);
+      }
+    }
+    first = 8 * nv;
+  }
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long j = first + static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
-       j < out_n; j += stride) {
+       j < out_n; j += threads) {
     const long long i1 = 2 * j + 1;
     const unsigned lo = codes[2 * j];
     const unsigned hi = codes[i1 < n ? i1 : 0];
@@ -320,7 +367,8 @@ int jalad_quantize_blocks(const void* x, int in_bf16, long long n,
                          codes, blocks, s);
 }
 
-// K6c: codes (n,) u8 -> out (out_n,) u8, out_n = ceil(n / 2). One launch.
+// K6c: codes (n,) u8 -> out (out_n,) u8, out_n = ceil(n / 2); blocks cover
+// ceil(n / 16) 16-byte loads. One launch.
 int jalad_pack4_blocks(const uint8_t* codes, long long n, uint8_t* out,
                        long long out_n, int blocks, void* stream) {
   pack4_blocks_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(

@@ -677,8 +677,10 @@ def quantize_blocks(x: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
 
 
 def pack4_blocks(codes: torch.Tensor) -> torch.Tensor:
-    """K6c: (n,) u8 codes below 16, n >= 1 -> (ceil(n / 2),) packed
-    bytes."""
+    """K6c: (n,) u8 codes, n >= 1 -> (ceil(n / 2),) packed bytes ``codes[2i]
+    | codes[2i + 1] << 4`` truncated to 8 bits (so codes of 16 and above
+    give the plain version's bytes too). 16-byte loads where the codes start
+    on a 16-byte boundary, one byte a thread where they do not."""
     if codes.device.type == "cpu":
         return ref.pack4_blocks_ref(codes)
     _check_cuda(codes, "pack4_blocks")
@@ -690,7 +692,7 @@ def pack4_blocks(codes: torch.Tensor) -> torch.Tensor:
     out_n = (n + 1) // 2
     out = torch.empty((out_n,), dtype=torch.uint8, device=codes.device)
     fn = _fn("threelaunch", "jalad_pack4_blocks", [_P, _L, _P, _L, _I, _P])
-    status = fn(_ptr(codes), n, _ptr(out), out_n, _grid(out_n, 1),
+    status = fn(_ptr(codes), n, _ptr(out), out_n, _grid(-(-n // 16), 1),
                 _stream())
     build.check(status, "pack4_blocks")
     bump("pack4_blocks")

@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
-the card, the batched cloud step that the fleet server runs, and the
+the card, the batched cloud step that the fleet server runs, channel
+removal's mask and ``compress`` against their CPU runs, and the
 parameter draw on the card (``models/init.py``). Every
 test here carries ``requires_cuda`` and skips without a card. The file
 imports neither JAX nor the reference package
@@ -577,6 +578,61 @@ def test_threelaunch_chain_runs_only_its_kernels(cuda):
         assert list(ops.values()) == [1] * len(names), (bits, ops)
         for name in names:
             assert any(name in k for k in ops), (bits, name, ops)
+
+
+def test_pack4_blocks_offsets_counts_and_wide_codes_match_plain(cuda):
+    """K6c on codes that start 0-15 bytes off a 16-byte boundary (views into
+    one buffer: the byte-wise branch), at odd and even counts, below 16, at
+    one more than a multiple of 16 and at the stem's count; and on codes of
+    16 and above, whose bytes are the plain version's ``lo | hi << 4``
+    truncated to 8 bits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    stem = 4 * 64 * 112 * 112
+    buf = torch.randint(0, 256, (stem + 16,), dtype=torch.uint8,
+                        device=cuda, generator=gen)
+    counts = (1, 2, 7, 15, 16, 17, 33, 4096, 4097, 70_001, stem)
+    for src in (buf & 15, buf):
+        for off in range(16):
+            for n in counts:
+                codes = src[off:off + n]
+                with qops.count_launches() as box:
+                    got = qops.pack4_blocks(codes)
+                assert box.counts["pack4_blocks"] == 1
+                assert torch.equal(got, qref.pack4_blocks_ref(codes)), (
+                    int(src.max()), off, n)
+    torch.cuda.synchronize()
+
+
+def test_channel_mask_and_compress_match_cpu(cuda):
+    """``apply_channel_mask`` on the card equals its CPU run bit for bit
+    (signed zeros included) in float32 and bfloat16; ``compress`` of the
+    masked boundary launches K3 once and gives the CPU run's payload,
+    range and transfer size."""
+    from repro_torch.core import channel_removal as cr
+    from repro_torch.core import compression as comp
+
+    x = torch.from_numpy(_features((4, 64, 56, 56), seed=9)) - 0.1
+    x[0, 3] = -0.0
+    mask = np.random.default_rng(0).random(64) > 0.25
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        got = cr.apply_channel_mask(xc.to(cuda), mask, axis=1)
+        want = cr.apply_channel_mask(xc, mask, axis=1)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        assert torch.equal(got.cpu().float().view(torch.int32),
+                           want.float().view(torch.int32))
+    masked = cr.apply_channel_mask(x, mask, axis=1)
+    for bits in (2, 4, 8):
+        with qops.count_launches() as box:
+            c = comp.compress(masked.to(cuda), bits)
+        assert box.counts["huffman_pack"] == 1
+        cpu = comp.compress(masked, bits)
+        assert c.payload == cpu.payload and c.shape == cpu.shape
+        assert np.float32(c.x_min).tobytes() == np.float32(cpu.x_min).tobytes()
+        assert np.float32(c.x_max).tobytes() == np.float32(cpu.x_max).tobytes()
+        size = comp.transfer_size_bytes(masked.to(cuda), bits)
+        assert size == comp.transfer_size_bytes(masked, bits)
+        assert abs(size - c.nbytes) <= 64
 
 
 @pytest.mark.parametrize("codec", ("bitpack", "huffman", "perchannel"))

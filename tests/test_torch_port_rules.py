@@ -34,6 +34,9 @@ SSM_MODULES = (
     "repro_torch.configs.yi_6b", "repro_torch.configs.granite_34b",
     "repro_torch.models.layers.mamba2", "repro_torch.models.layers.xlstm",
 )
+# The compression shim and the paper's channel removal.
+CORE_MODULES = ("repro_torch.core.compression",
+                "repro_torch.core.channel_removal")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -55,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                          timeout=300).stdout.split(" ")
     assert int(out[0]) >= 62          # every module of the port was imported
     assert out[1].strip() == "[]"
-    assert set(LM_MODULES + SSM_MODULES) <= set(out[2].strip().split(","))
+    assert set(LM_MODULES + SSM_MODULES + CORE_MODULES) <= set(
+        out[2].strip().split(","))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
