@@ -171,7 +171,26 @@ NVIDIA card.
    ``RNN_SOLO_CODEC``; (d) 5 profiled stream steps; (e) each model
    reduced, float32, card against CPU. Prints each model's weight-draw
    time and peak device memory.
-11. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+11. Serves the vlm and audio families at full width and depth, bfloat16,
+   random weights from seed 0 drawn on the card: qwen2-vl-7b (28 blocks,
+   M-RoPE, a 16-row stub vision prefix) and seamless-m4t-large-v2 (24
+   encoder and 24 cross-attention decoder blocks, 8 stub source frames),
+   across the one-shot cut (their token streams are refused, as in the
+   reference): (a) ``ServeSession`` (batch 4, prompt 32, 16 tokens;
+   prefill and decode-step times), ``run_head`` -> ``run_tail`` with the
+   extras equal to the forward bit for bit at the first, middle and last
+   points, and ``run_segment`` chained the same way; (b)
+   ``build_edge_cloud_server`` over the three codecs (calibration timed),
+   ``decide`` at two bandwidths, and for each codec the plan pinned at the
+   middle point, 8 bits, serving 4 requests through ``serve_batch`` with
+   the counters set to 0 before and read after each: one encode and one
+   decode launch a request, logits equal to the plain path's bit for bit
+   and within ``MM_LOGITS_SHARE`` of the full forward's scale, and K1–K5
+   byte for byte against their plain versions on the real boundary; (c)
+   the vlm's engine on text prompts, greedy and sampled, batched equal to
+   solo; the audio engine refused (no ``src_frames``); (d) each model
+   reduced, float32, card against CPU.
+12. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -340,6 +359,32 @@ MOE_DROP_PROMPT = 512
 MOE_KV_RATIO = 0.5 + 4 / 256
 # Reduced models in float32, card against CPU (as LM_SMALL_RTOL).
 MOE_SMALL_RTOL = 1e-5
+
+# Multimodal LM serving (step 11): full-width qwen2-vl-7b (family vlm: a
+# stub vision prefix, M-RoPE) and seamless-m4t-large-v2 (family audio: an
+# encoder over stub frames, cross attention), bfloat16, full depth, random
+# weights from seed 0 drawn on the card. Both serve across the cut one-shot
+# only (the reference refuses their token streams). Each arch's split
+# points (the first, the middle, the last) and its middle point, where the
+# plans of (b) are pinned at MM_BITS bits. ServeSession at LM_SESSION: the
+# vlm prompt is 16 stub vision rows + 16 text tokens, the audio prompt 32
+# tokens with 8 stub frames (make_batch).
+MM_ARCHS = {"qwen2-vl-7b": dict(point=14, split=(0, 14, 27)),
+            "seamless-m4t-large-v2": dict(point=12, split=(0, 12, 23))}
+MM_BITS = 8
+MM_REQUESTS = 4
+MM_BANDWIDTHS = (1e5, 1e7)
+# A served request's logits against the full forward's: 8-bit per-tensor
+# codes of a boundary whose range is ~10 of its standard deviations put a
+# noise of ~1e-2 of the boundary's scale on it, ~1e-2 of the logits' scale
+# after the tail; bf16 adds its own rounding. The bound leaves 10x.
+MM_LOGITS_SHARE = 0.1
+# Calibration batch: 2 prompts of the session's length.
+MM_CALIB = (2, 32)
+# Reduced models in float32, card against CPU (as LM_SMALL_RTOL); the vlm's
+# prompt must hold its 16 stub vision rows and some text.
+MM_SMALL_RTOL = 1e-5
+MM_SMALL_SEQ = {"qwen2-vl-7b": 24, "seamless-m4t-large-v2": 12}
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -2328,9 +2373,10 @@ def lm_stream_phase(torch, make, model, point, reqs, codec, counts,
     return out
 
 
-def lm_small_check(torch, cfg, rtol: float) -> float:
-    """``cfg`` reduced, in float32, card against CPU: forward logits within
-    ``rtol`` of their scale and equal greedy tokens. Returns the share."""
+def lm_small_check(torch, cfg, rtol: float, seq: int = 12) -> float:
+    """``cfg`` reduced, in float32, card against CPU, on ``make_batch``'s
+    two prompts of ``seq``: forward logits within ``rtol`` of their scale
+    and equal greedy tokens. Returns the share."""
     from repro_torch.config import ServeConfig
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.api import batch_to, build_model
@@ -2341,13 +2387,13 @@ def lm_small_check(torch, cfg, rtol: float) -> float:
     sm = build_model(small)
     cpu_p = sm.init(0, "cpu")
     card_p = params_to(cpu_p, torch.device("cuda"))
-    sb = make_batch(small, 2, 12, seed=3)
+    sb = make_batch(small, 2, seq, seed=3)
     with torch.no_grad():
         lc = sm.forward(card_p, batch_to(sb, torch.device("cuda"))).cpu()
         lh = sm.forward(cpu_p, batch_to(sb, "cpu"))
     rel = float((lc - lh).abs().max() / lh.abs().max())
     check(rel <= rtol, f"reduced {cfg.arch_id} card/cpu logits {rel:.2e}")
-    ssc = ServeConfig(max_batch=2, max_seq_len=24)
+    ssc = ServeConfig(max_batch=2, max_seq_len=seq + 12)
     tc = ServeSession(sm, card_p, ssc).generate(sb, 8)
     th = ServeSession(sm, cpu_p, ssc).generate(sb, 8)
     check((tc == th).all(), f"reduced {cfg.arch_id} card/cpu tokens")
@@ -2660,6 +2706,276 @@ def serve_moe_lm(torch, results):
     return counts
 
 
+class PinnedController:
+    """The adaptation controller's serving surface with one plan pinned:
+    ``serve_batch`` reads ``current_plan`` and feeds ``observe_transfer``."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def current_plan(self, bandwidth=None):
+        return self.plan
+
+    def observe_transfer(self, nbytes, seconds):
+        return None
+
+
+def mm_session_phase(torch, model, params, points, what: str):
+    """(a) of step 11: ``ServeSession`` at LM_SESSION (prefill, median of
+    3, and greedy tokens; the decode-step time), then the one-shot split
+    with the extras beside the boundary against the full forward, bit for
+    bit: ``run_head`` -> ``run_tail`` at each of ``points``, and
+    ``run_segment`` chaining ``run_head(0)`` to each point. Returns
+    (session dict, the batch on the card, the full forward's logits)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.api import batch_to
+    from repro_torch.serving.engine import ServeSession
+
+    cfg, names = model.cfg, model.decoupling_points()
+    b, s, new = LM_SESSION
+    batch = make_batch(cfg, b, s, seed=0)
+    tb = batch_to(batch, torch.device("cuda"))
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(3):
+            t1 = sync_clock(torch)
+            logits, caches = model.prefill(params, tb, s + new)
+            prefill_ms.append((sync_clock(torch) - t1) * 1e3)
+        del caches
+        check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{what} prefill logits {tuple(logits.shape)}")
+        full = model.forward(params, tb)
+        check(torch.equal(full, logits), f"{what} forward != prefill")
+        head0, ex0 = model.run_head(params, tb, 0)
+        for point in points:
+            x, extras = model.run_head(params, tb, point)
+            check(sorted(extras) == ["enc_out", "pos3d", "positions"],
+                  f"{what} extras {sorted(extras)}")
+            check(torch.equal(model.run_tail(params, x, point, extras), full),
+                  f"{what} split at {names[point]} != unsplit")
+            mid, ex2 = model.run_segment(params, head0, 0, point, ex0)
+            check(ex2 is ex0 and torch.equal(
+                model.run_tail(params, mid, point, ex2), full),
+                f"{what} run_segment chain to {names[point]} != unsplit")
+    t1 = sync_clock(torch)
+    toks = ServeSession(model, params, ServeConfig(
+        max_batch=b, max_seq_len=s + new)).generate(batch, new)
+    gen_ms = (sync_clock(torch) - t1) * 1e3
+    check(toks.shape == (b, new), f"{what} ServeSession tokens {toks.shape}")
+    pre = statistics.median(prefill_ms)
+    session = dict(batch=b, prompt=s, tokens=new,
+                   prefill_ms=pre, generate_ms=gen_ms,
+                   per_token_ms=(gen_ms - pre) / (new - 1),
+                   distinct_tokens=[len(set(r)) for r in toks.tolist()],
+                   split_points=[names[p] for p in points])
+    stub = (f"{batch['vision_embeds'].shape[1]} vision rows + "
+            f"{batch['tokens'].shape[1]} tokens" if "vision_embeds" in batch
+            else f"{s} tokens, {batch['src_frames'].shape[1]} source frames")
+    print(f"  (a) ServeSession batch {b}, prompt {stub}, {new} greedy "
+          f"tokens in {gen_ms:.1f} ms (prefill {pre:.2f} ms, "
+          f"{session['per_token_ms']:.2f} ms a decode step); run_head -> "
+          f"run_tail with extras == forward bitwise at "
+          f"{session['split_points']}, and run_segment chained from the "
+          f"first point")
+    return session, batch, full
+
+
+def mm_serve_phase(torch, model, params, batch, full, point, counts):
+    """(b) of step 11: ``build_edge_cloud_server`` over the three codecs
+    (calibration timed), ``decide`` at MM_BANDWIDTHS, then for each codec
+    the plan pinned at ``point``, MM_BITS bits, serving MM_REQUESTS
+    requests through ``serve_batch`` with the counters set to 0 just
+    before each and read just after: one encode and one decode launch a
+    request (added into ``counts``). The decoded boundary equals the
+    codec's plain value transform (``simulate``) bit for bit; each
+    request's logits equal the tail's on those plain values, laid out as
+    the decode lays them out (the per-channel decode's layout is
+    channel-major, and a matrix product over other strides may round
+    otherwise), bit for bit, and lie within MM_LOGITS_SHARE of the full
+    forward's scale; K1-K5 equal their plain versions byte for byte on
+    the real boundary. Returns a dict of the numbers."""
+    from repro_torch.codec import get_codec
+    from repro_torch.config import JaladConfig
+    from repro_torch.core.decoupler import DecoupledPlan
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.models.api import batch_to
+    from repro_torch.serving.edge_cloud import (
+        EdgeCloudServer,
+        build_edge_cloud_server,
+    )
+
+    cfg, names = model.cfg, model.decoupling_points()
+    jc = JaladConfig(codec_choices=CODECS)
+    t1 = sync_clock(torch)
+    server, _ = build_edge_cloud_server(
+        cfg, jc, calib_batches=1, calib_batch_size=MM_CALIB[0],
+        seq_len=MM_CALIB[1], params=params)
+    calib_s = sync_clock(torch) - t1
+    engine = server.engine
+    print(f"  (b) build_edge_cloud_server: calibration over "
+          f"{len(engine.tables.points)} points x {len(jc.bits_choices)} "
+          f"widths x {len(CODECS)} codecs, batch {MM_CALIB[0]} x "
+          f"{MM_CALIB[1]}, in {calib_s:.1f} s")
+    decisions = {}
+    for bw in MM_BANDWIDTHS:
+        p = engine.decide(bw)
+        decisions[str(bw)] = _plan(p)
+        where = names[p.point] if p.point >= 0 else "cloud"
+        print(f"  (b) decide at {bw:.0e} B/s: {where} {p.bits} bits "
+              f"{p.codec or '-'} (predicted {p.predicted_latency:.4f} s)")
+    tb = batch_to(batch, torch.device("cuda"))
+    with torch.no_grad():
+        boundary, extras = model.run_head(params, tb, point)
+    scale = float(full.float().abs().max())
+    served = {}
+    for codec in CODECS:
+        plan = DecoupledPlan(point, MM_BITS, 0.0, 0.0, 0.0, codec)
+        srv = EdgeCloudServer(engine, params,
+                              controller=PinnedController(plan))
+        with torch.no_grad():
+            blob, _ = srv.runners.get(plan).edge_step(batch)
+            dec = get_codec(codec).decode(blob, out_dtype=boundary.dtype,
+                                          device=boundary.device)
+            q = get_codec(codec).simulate(boundary, MM_BITS)
+            check(torch.equal(dec.float().view(torch.int32),
+                              q.float().view(torch.int32)),
+                  f"{cfg.arch_id} {codec}: decoded boundary != the plain "
+                  "value transform")
+            plain = model.run_tail(params, torch.empty_like(dec).copy_(q),
+                                   point, extras)
+        walls, shares, sent = [], [], []
+        for i in range(MM_REQUESTS):
+            qops.reset_launch_counts()
+            t1 = sync_clock(torch)
+            logits, bd = srv.serve_batch(batch, 10e6)
+            walls.append((sync_clock(torch) - t1) * 1e3)
+            got = qops.launch_counts()
+            want = dict.fromkeys(got, 0)
+            want[ENCODE_KERNEL[codec]] += 1
+            want[DECODE_KERNEL[codec]] += 1
+            check(got == want,
+                  f"{cfg.arch_id} {codec} request {i}: launches "
+                  f"{ {k: v for k, v in got.items() if v} }")
+            for k, v in got.items():
+                counts[k] += v
+            check(bd.plan_point == point and bd.plan_codec == codec,
+                  f"{cfg.arch_id} {codec}: served plan {bd.plan_point}")
+            check(torch.equal(logits, plain),
+                  f"{cfg.arch_id} {codec} request {i}: logits != the tail's "
+                  "on the plain values")
+            share = float((logits.float() - full.float()).abs().max()) / scale
+            check(share <= MM_LOGITS_SHARE,
+                  f"{cfg.arch_id} {codec}: logits {share:.3e} of the "
+                  f"forward's scale > {MM_LOGITS_SHARE}")
+            shares.append(share)
+            sent.append(bd.bytes_sent)
+        served[codec] = dict(plan=dict(point=names[point], bits=MM_BITS),
+                             bytes_sent=sent[0], wall_ms=walls,
+                             median_ms=statistics.median(walls),
+                             share_of_forward=max(shares))
+        print(f"  (b) {codec:10s} at {names[point]}/{MM_BITS} bits: "
+              f"{MM_REQUESTS} requests through serve_batch, one "
+              f"{ENCODE_KERNEL[codec]} and one {DECODE_KERNEL[codec]} "
+              f"launch each, {sent[0]} B a request ({boundary.numel() * 2} B "
+              f"of bf16 boundary), median {served[codec]['median_ms']:.1f} "
+              f"ms a request; logits == the tail's on the plain values, "
+              f"{max(shares):.3e} of the forward's scale")
+    b = boundary.shape[0]
+    frames = (boundary[:, -1:].reshape(b, 1, 1, -1), boundary[None])
+    worst, kernel_ms = check_stream_kernels(torch, frames)
+    print(f"  (b) K1-K5 on the served boundary {tuple(boundary.shape)} "
+          f"(one sample, as the codecs take it) and on its last rows == "
+          f"plain versions (max diff {worst}); 8-bit times on "
+          f"{kernel_ms['shape']}: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in kernel_ms.items()
+              if k != "shape"))
+    return dict(calibration_s=calib_s, decisions=decisions, served=served,
+                kernel_max_diff=worst, kernel_ms=kernel_ms,
+                boundary_shape=list(boundary.shape),
+                extras_shapes={k: None if v is None else list(v.shape)
+                               for k, v in extras.items()})
+
+
+def mm_engine_phase(torch, model, params, what: str):
+    """(c) of step 11: the vlm's engine on text prompts through
+    ``lm_engine_phase`` (greedy and sampled, batched equal to solo); an
+    audio model's engine is refused at its first prefill, for want of
+    ``src_frames``, as the reference fails there."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serving.scheduler import (
+        ContinuousBatchingEngine,
+        GenRequest,
+    )
+
+    if not model.cfg.is_encdec:
+        return lm_engine_phase(torch, model, params, what)[0]
+    eng = ContinuousBatchingEngine(model, params, ServeConfig(
+        max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ))
+    prompt, new, _ = lm_requests(model.cfg.vocab_size, 1, seed=1)[0]
+    eng.submit(GenRequest(uid=0, tokens=prompt, max_new_tokens=new))
+    try:
+        eng.run()
+    except ValueError as e:
+        check("src_frames" in str(e), f"{what} refusal: {e}")
+        print(f"  (c) engine refused as expected: {e}")
+        return dict(refused=str(e))
+    check(False, f"{what}: the continuous engine served an audio model")
+
+
+def serve_mm_lm(torch, results):
+    """Step 11: full-width qwen2-vl-7b and seamless-m4t-large-v2 at full
+    depth (bfloat16, random weights from seed 0 drawn on the card) served
+    across the one-shot JALAD cut: ServeSession and the split with
+    extras, calibration and pinned plans through serve_batch, the engine,
+    and each model reduced, card against CPU."""
+    import gc
+
+    from repro_torch.kernels.quantize import ops as qops
+
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    out_all = {}
+    for arch, spec in MM_ARCHS.items():
+        model, params, init_s = load_lm(torch, arch, "device")
+        cfg, names, point = model.cfg, model.decoupling_points(), spec["point"]
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        extra = (f"{cfg.num_encoder_layers} encoder + " if cfg.is_encdec
+                 else "M-RoPE sections "
+                 f"{cfg.mrope_sections}, vision_proj, ")
+        print(f"MM: {arch} ({cfg.family}; {model.param_count():,} "
+              f"parameters, {nbytes / 1e9:.2f} GB; {extra}{len(names)} "
+              f"decoder blocks, d_model {cfg.d_model}, {cfg.num_heads} heads "
+              f"/ {cfg.num_kv_heads} KV, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}); weights from seed 0 drawn on "
+              f"the card in {init_s:.2f} s")
+        out = dict(card=card_line(), arch=arch, params=model.param_count(),
+                   weight_bytes=nbytes, init_s=init_s, point=names[point])
+        session, batch, full = mm_session_phase(torch, model, params,
+                                                spec["split"], arch)
+        serving = mm_serve_phase(torch, model, params, batch, full, point,
+                                 counts)
+        del full
+        engine = mm_engine_phase(torch, model, params, arch)
+        rel = lm_small_check(torch, cfg, MM_SMALL_RTOL, MM_SMALL_SEQ[arch])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {arch}: peak device memory {peak / 1e9:.2f} GB "
+              f"(weights {nbytes / 1e9:.2f} GB)")
+        out.update(session=session, engine=engine, small_rel=rel,
+                   peak_bytes=peak, **serving)
+        out_all[arch] = out
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for codec in CODECS:
+        for name in (ENCODE_KERNEL[codec], DECODE_KERNEL[codec]):
+            check(counts[name] > 0, f"{name} never launched on step 11")
+    print(f"  multimodal serve launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    results["lm_multimodal"] = out_all
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [v for k in sorted(tree) for v in _leaves(tree[k])]
@@ -2730,10 +3046,11 @@ def main(argv=None) -> int:
     lm = step("lm serving", serve_lm)
     rnn = step("recurrent lm serving", serve_recurrent_lm)
     moe = step("moe lm serving", serve_moe_lm)
+    mm = step("multimodal lm serving", serve_mm_lm)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
              "threelaunch": k6_path, "channel_removal": removal,
              "three_tier": three, "lm_stream": lm,
-             "rnn_stream": rnn, "moe_stream": moe}
+             "rnn_stream": rnn, "moe_stream": moe, "mm_serve": mm}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

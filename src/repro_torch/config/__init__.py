@@ -9,7 +9,12 @@ from repro_torch.config.types import (
     EDGE_TK1,
     EDGE_SERVER_1060,
 )
-from repro_torch.config.registry import register, get_config, list_archs
+from repro_torch.config.registry import (
+    register,
+    get_config,
+    list_archs,
+    assigned_archs,
+)
 
 __all__ = [
     "ModelConfig",
@@ -24,4 +29,5 @@ __all__ = [
     "register",
     "get_config",
     "list_archs",
+    "assigned_archs",
 ]

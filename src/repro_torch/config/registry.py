@@ -37,3 +37,10 @@ def get_config(arch_id: str) -> ModelConfig:
 def list_archs() -> List[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+def assigned_archs() -> List[str]:
+    """The 10 architectures assigned from the public pool (not the paper's
+    own CNN testbed)."""
+    _ensure_loaded()
+    return sorted(a for a in _REGISTRY if _REGISTRY[a].family != "cnn")

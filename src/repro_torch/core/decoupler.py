@@ -64,13 +64,22 @@ class DecoupledPlan:
         return self.point2 >= 0
 
 
+def _pair(out) -> Tuple[torch.Tensor, Any]:
+    """A head's output as ``(boundary, extras)`` (extras None but for a
+    vlm or audio model)."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
 @dataclass
 class DecoupledRunner:
     """Executable split model on the parameters' device. ``edge_step``
     runs the head and encodes the boundary (a host ``WireBlob`` — the
     link); ``cloud_step`` decodes it and finishes the inference, and
     ``cloud_step_batch`` does so for a group of blobs with one batched
-    decode. The wire format is entirely the plan's codec's."""
+    decode. The wire format is entirely the plan's codec's. A vlm or
+    audio head's extras (positions, M-RoPE ids, the encoder output)
+    travel beside the blob, never inside it, as in the reference: the
+    wire bytes are the codec's alone."""
 
     model: Model
     params: Any
@@ -85,19 +94,20 @@ class DecoupledRunner:
 
     @torch.no_grad()
     def edge_step(self, batch) -> Tuple["WireBlob", Any]:
-        boundary = self.model.run_head(self.params,
-                                       batch_to(batch, self.device),
-                                       self.plan.point)
-        return self._codec.encode(boundary, self.plan.bits), None
+        boundary, extras = _pair(self.model.run_head(
+            self.params, batch_to(batch, self.device), self.plan.point))
+        return self._codec.encode(boundary, self.plan.bits), extras
 
     @torch.no_grad()
     def edge_step_batch(self, batches) -> List[Tuple["WireBlob", Any]]:
         """Heads per request, then ONE batched codec encode of the
         same-shape boundaries; each blob byte-identical to ``edge_step``."""
-        heads = [self.model.run_head(self.params, batch_to(b, self.device),
-                                     self.plan.point) for b in batches]
-        blobs = self._codec.encode_batch(heads, self.plan.bits)
-        return [(blob, None) for blob in blobs]
+        pairs = [_pair(self.model.run_head(
+            self.params, batch_to(b, self.device), self.plan.point))
+            for b in batches]
+        blobs = self._codec.encode_batch([p[0] for p in pairs],
+                                         self.plan.bits)
+        return [(blob, extras) for blob, (_, extras) in zip(blobs, pairs)]
 
     @torch.no_grad()
     def cloud_step(self, blob: "WireBlob", extras=None) -> torch.Tensor:
@@ -105,7 +115,8 @@ class DecoupledRunner:
 
         boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
                                                 device=self.device)
-        return self.model.run_tail(self.params, boundary, self.plan.point)
+        return self.model.run_tail(self.params, boundary, self.plan.point,
+                                   extras)
 
     @torch.no_grad()
     def cloud_step_batch(self, blobs: List["WireBlob"],
@@ -203,10 +214,9 @@ class TriDecoupledRunner:
 
     @torch.no_grad()
     def device_step(self, batch) -> Tuple["WireBlob", Any]:
-        boundary = self.model.run_head(self.params,
-                                       batch_to(batch, self.device),
-                                       self.plan.point)
-        return self._codec1.encode(boundary, self.plan.bits), None
+        boundary, extras = _pair(self.model.run_head(
+            self.params, batch_to(batch, self.device), self.plan.point))
+        return self._codec1.encode(boundary, self.plan.bits), extras
 
     @torch.no_grad()
     def edge_server_step(self, blob: "WireBlob",
@@ -218,8 +228,9 @@ class TriDecoupledRunner:
             return blob, extras
         boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
                                                 device=self.device)
-        boundary2 = self.model.run_segment(self.params, boundary,
-                                           self.plan.point, self.plan.point2)
+        out = self.model.run_segment(self.params, boundary, self.plan.point,
+                                     self.plan.point2, extras)
+        boundary2, extras = out if isinstance(out, tuple) else (out, extras)
         return self._codec2.encode(boundary2, self.plan.bits2), extras
 
     @torch.no_grad()
@@ -228,7 +239,8 @@ class TriDecoupledRunner:
 
         boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
                                                 device=self.device)
-        return self.model.run_tail(self.params, boundary, self.plan.point2)
+        return self.model.run_tail(self.params, boundary, self.plan.point2,
+                                   extras)
 
     def run(self, batch):
         """Full three-hop inference; returns ``(logits, link1_bytes,

@@ -144,6 +144,18 @@ def _batch_size(batch: Dict, labels_key: str) -> int:
     return int(np.shape(next(iter(batch.values())))[0])
 
 
+def _repeat_extras(extras, n: int):
+    """A head's extras for ``n`` bit-width copies of its boundary stacked
+    along the batch axis: each tensor leaf (positions ``(B, S)``, M-RoPE
+    ids ``(B, S, 3)``, the encoder output ``(B, S_enc, d)``) repeated
+    ``n`` times along that axis. The reference vmaps its tail over the
+    widths with the extras closed over instead."""
+    if extras is None:
+        return None
+    return {k: None if v is None else torch.cat([v] * n)
+            for k, v in extras.items()}
+
+
 @torch.no_grad()
 def build_tables(
     model: Model,
@@ -195,11 +207,12 @@ def build_tables(
         counts = torch.zeros((n_p, len(key_order), n_c), dtype=torch.int64,
                              device=device)
         heads = model.run_heads(params, tb, pts) if n_c else []
-        for pi, (point, (boundary, _)) in enumerate(zip(pts, heads)):
+        for pi, (point, (boundary, extras)) in enumerate(zip(pts, heads)):
+            extras = _repeat_extras(extras, n_c)
             for kk, key in enumerate(key_order):
                 xq = key_rep[key].simulate_batch(boundary, bits_t)
                 logits = model.run_tail(params, xq.reshape(
-                    (-1,) + tuple(boundary.shape[1:])), point)
+                    (-1,) + tuple(boundary.shape[1:])), point, extras)
                 stats.tail_forwards += 1
                 preds = _top1(logits).reshape(n_c, -1)
                 counts[pi, kk] = (preds == ref[None]).sum(dim=1)
@@ -271,14 +284,15 @@ def build_tables_reference(
         total += ref.shape[0]
 
         for pi, point in enumerate(pts):
-            boundary = model.run_head(params, tb, point)
+            out = model.run_head(params, tb, point)
+            boundary, extras = out if isinstance(out, tuple) else (out, None)
             for ci, bits in enumerate(bits_choices):
                 n_ok_by_key: Dict[str, int] = {}
                 for ki, codec in enumerate(codec_objs):
                     key = codec.value_key
                     if key not in n_ok_by_key:
                         xq = codec.simulate(boundary, bits)
-                        logits = model.run_tail(params, xq, point)
+                        logits = model.run_tail(params, xq, point, extras)
                         stats.step_dispatches += 1
                         stats.host_syncs += 1
                         stats.tail_forwards += 1

@@ -1,9 +1,12 @@
 """Serving launcher of the port: batched and continuous-batching
-generation for the decoders (dense, moe, ssm and hybrid families:
-olmo-1b, qwen3-8b, yi-6b, granite-34b, grok-1-314b,
-llama4-maverick-400b-a17b, xlstm-1.3b, zamba2-2.7b), and JALAD
-edge-cloud serving of the CNN testbed (synchronous or pipelined), on the
-CUDA card unless ``--device cpu`` is given.
+generation for the decoders (dense, moe, ssm, hybrid, vlm and audio
+families: olmo-1b, qwen3-8b, yi-6b, granite-34b, grok-1-314b,
+llama4-maverick-400b-a17b, xlstm-1.3b, zamba2-2.7b, qwen2-vl-7b,
+seamless-m4t-large-v2), and JALAD edge-cloud serving of the CNN testbed
+(synchronous or pipelined), on the CUDA card unless ``--device cpu`` is
+given. A vlm batch carries stub vision embeddings, an audio batch stub
+source frames (``make_batch``); continuous batching serves a vlm's text
+prompts and refuses an audio model (its requests carry no frames).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --tokens 16                       # one-shot batched generation
@@ -16,6 +19,10 @@ CUDA card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
       --reduced --device cpu [--continuous]   # MoE (full depth fits no
                                               # one card)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+      [--continuous]                    # vision prefix + M-RoPE
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2      # encoder + cross-attention
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \
       --jalad --codec huffman --bandwidth 300e3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet50 \

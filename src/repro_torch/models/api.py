@@ -2,21 +2,28 @@
 :class:`Model` with the reference's decoupling surface (``forward``,
 ``decoupling_points``, ``run_head``, ``run_heads``, ``run_segment``,
 ``run_tail``, ``per_point_fmacs``, ``boundary_bytes``) for the paper's CNN
-testbed and the decoder families (dense, moe, ssm, hybrid), which also
-serve (``prefill``, ``decode_step``, ``init_caches``) and stream across a
-cut (``prefill_head`` / ``prefill_tail``, ``decode_head`` /
-``decode_tail``, ``init_head_caches`` / ``init_tail_caches``).
+testbed and every decoder family (dense, moe, ssm, hybrid, vlm, audio),
+which also serve (``prefill``, ``decode_step``, ``init_caches``); the
+text families also stream across a cut (``prefill_head`` /
+``prefill_tail``, ``decode_head`` / ``decode_tail``, ``init_head_caches``
+/ ``init_tail_caches``).
 
 Parameters are nested dicts (and, for the decoder's segments, lists) of
 tensors keyed like the reference's trees. Batches are dicts: ``"images"``
-(B, 3, H, W) for a CNN, ``"tokens"`` (B, S) for a decoder (numpy arrays
-are moved to the parameters' device by :func:`batch_to`).
+(B, 3, H, W) for a CNN, ``"tokens"`` (B, S) for a decoder, with
+``"vision_embeds"`` (B, n_vis, d) for a vlm and ``"src_frames"`` (B,
+S_enc, d) for an encoder-decoder (numpy arrays are moved to the
+parameters' device by :func:`batch_to`).
 
-One difference from the reference: a decoder's ``run_head`` returns the
-boundary tensor alone. Text positions are ``arange`` over the sequence,
-which the tail rebuilds from the boundary's shape, so there are no extras
-to carry. The other model families (vlm, audio) are not ported yet and
-raise.
+The one-shot split of a vlm or audio model carries the reference's
+extras beside the boundary: ``run_head`` returns ``(boundary, extras)``
+with ``extras = {"positions", "enc_out", "pos3d"}``, ``run_tail`` and
+``run_segment`` take them, and ``run_segment`` returns ``(boundary2,
+extras)``. They travel beside the wire blob, never inside it. One
+difference from the reference: a text family's ``run_head`` (and
+``run_segment``) returns the boundary tensor alone. Its positions are
+``arange`` over the sequence, which the tail rebuilds from the boundary's
+shape, so there are no extras to carry.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from repro_torch.models.init import materialize
 from repro_torch.models.layers.mamba2 import mamba_dims
 
 # Families the port builds; the others raise in build_model.
-PORTED_FAMILIES = ("cnn", "dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("cnn", "dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -50,6 +57,7 @@ class Model:
 
     def __post_init__(self):
         self.is_lm = self.cfg.family != "cnn"
+        self.has_extras = self.is_lm and tf_lib.has_extras(self.cfg)
         self.layers = None if self.is_lm else cnn_lib.build_layers(self.cfg)
 
     # ------------------------------------------------------------- params
@@ -95,22 +103,27 @@ class Model:
                     for li in range(seg.count)]
         return [lyr.name for lyr in self.layers]
 
-    def run_head(self, params, batch, point: int) -> torch.Tensor:
-        """Run layers [0, point] and return the boundary activation."""
+    def run_head(self, params, batch, point: int):
+        """Run layers [0, point] and return the boundary activation, with
+        the extras beside it for a vlm or audio model: ``(boundary,
+        extras)``."""
         if self.is_lm:
-            return tf_lib.run_head(params, self.cfg, batch, point)
+            x, extras = tf_lib.run_head(params, self.cfg, batch, point)
+            return (x, extras) if self.has_extras else x
         return cnn_lib.cnn_forward(self.layers, params, batch["images"],
                                    upto=point + 1)
 
     def run_heads(self, params, batch, points) -> List[Tuple[Any, Any]]:
         """Boundaries at several points from ONE tapped forward sweep, as
-        ``(boundary, None)`` pairs in ``points`` order."""
+        ``(boundary, extras)`` pairs in ``points`` order (extras None but
+        for a vlm or audio model)."""
         pts = list(points)
         if not pts:
             return []
         if self.is_lm:
-            taps = tf_lib.run_heads(params, self.cfg, batch, pts)
-            return [(taps[p], None) for p in pts]
+            taps, extras = tf_lib.run_heads(params, self.cfg, batch, pts)
+            extras = extras if self.has_extras else None
+            return [(taps[p], extras) for p in pts]
         want = set(pts)
         taps: Dict[int, torch.Tensor] = {}
         x = batch["images"]
@@ -123,25 +136,28 @@ class Model:
     def run_tail(self, params, boundary, point: int,
                  extras: Optional[Any] = None) -> torch.Tensor:
         if self.is_lm:
-            return tf_lib.run_tail(params, self.cfg, boundary, point)
+            return tf_lib.run_tail(params, self.cfg, boundary, point, extras)
         return cnn_lib.cnn_forward(self.layers, params, boundary,
                                    start=point + 1)
 
     def run_segment(self, params, boundary, from_point: int, to_point: int,
-                    extras: Optional[Any] = None) -> torch.Tensor:
+                    extras: Optional[Any] = None):
         """The middle tier of a three-way split: layers ``(from_point,
         to_point]`` on the boundary of ``run_head(..., from_point)``, so
         ``run_tail(run_segment(run_head(x, i1), i1, i2), i2)`` is the full
         forward. ``from_point == to_point`` (a relay) returns ``boundary``
-        itself."""
+        itself. A vlm or audio model returns ``(boundary2, extras)``, the
+        same extras: positions and the encoder output do not depend on
+        the cut."""
         if to_point < from_point:
             raise ValueError(f"segment requires from_point <= to_point, got "
                              f"({from_point}, {to_point})")
         if to_point == from_point:
-            return boundary
+            return (boundary, extras) if self.has_extras else boundary
         if self.is_lm:
-            return tf_lib.run_segment(params, self.cfg, boundary, from_point,
-                                      to_point)
+            x = tf_lib.run_segment(params, self.cfg, boundary, from_point,
+                                   to_point, extras)
+            return (x, extras) if self.has_extras else x
         return cnn_lib.cnn_forward(self.layers, params, boundary,
                                    start=from_point + 1, upto=to_point + 1)
 
@@ -164,10 +180,20 @@ class Model:
                                   live)
 
     def init_caches(self, batch: int, cache_len: int,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, enc_len: int = 0):
+        """Zero decode caches (a ``'c'`` block's cross K/V: ``enc_len``
+        rows)."""
         self._check_lm()
         return tf_lib.init_caches(self.cfg, batch, cache_len,
-                                  resolve_device(device))
+                                  resolve_device(device), enc_len)
+
+    def enc_len_for(self, seq_len: int) -> int:
+        return seq_len // 4 if self.cfg.is_encdec else 0
+
+    def vis_len_for(self, seq_len: int) -> int:
+        if self.cfg.family != "vlm":
+            return 0
+        return min(self.cfg.num_vision_tokens, max(seq_len // 4, 16))
 
     # -------------------------------------- token streaming (JALAD decode)
     def _check_token_split(self) -> None:
@@ -254,6 +280,10 @@ def _block_fmacs_per_token(cfg: ModelConfig) -> List[float]:
         elif kind == "s":
             out.append(4 * d * d + 4 * d * (d // max(cfg.num_heads, 1))
                        + 2 * d * int(4 / 3 * d))
+        elif kind == "c":
+            # The reference's count: 3 d d_ff, though the GELU MLP has two
+            # matrices.
+            out.append(2 * attn + 3.0 * d * cfg.d_ff)
         else:
             out.append(attn + dense_mlp)
     if cfg.shared_attention_every:
@@ -269,11 +299,8 @@ def _block_fmacs_per_token(cfg: ModelConfig) -> List[float]:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch: model family {cfg.family!r} is not yet ported "
-            "(vlm: the vision prefix and M-RoPE; audio: the encoder and "
-            "cross-attention blocks); the CNN testbed (vgg16/19, "
-            "resnet50/101) and the dense, moe, ssm and hybrid decoders are")
+        raise ValueError(f"unknown model family {cfg.family!r}; known: "
+                         f"{', '.join(PORTED_FAMILIES)}")
     if cfg.family == "cnn":
         return Model(cfg=cfg, specs=cnn_lib.cnn_param_specs(cfg))
     return Model(cfg=cfg, specs=tf_lib.param_specs(cfg))

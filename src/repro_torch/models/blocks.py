@@ -11,8 +11,8 @@ as it is). Block kinds the port runs:
   'l'  mLSTM block                                     — xlstm
   's'  sLSTM block                                     — xlstm
   'A'  shared attention block (zamba2; one parameter set, many invocations)
-
-The reference's other kinds ('E', 'c') raise.
+  'E'  encoder block         (bidirectional attn + GELU MLP) — seamless
+  'c'  decoder-with-cross-attention block              — seamless
 
 Each kind provides ``block_spec`` (ParamSpec tree), ``block_apply_seq``
 (full sequence; returns (x, cache_entry)) and ``block_apply_decode`` (one
@@ -31,28 +31,23 @@ from repro_torch.config.types import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
 from repro_torch.models.layers import xlstm as xlstm_lib
-from repro_torch.models.layers.mlp import apply_swiglu, swiglu_spec
+from repro_torch.models.layers.mlp import (
+    apply_gelu_mlp,
+    apply_swiglu,
+    gelu_mlp_spec,
+    swiglu_spec,
+)
 from repro_torch.models.layers.moe import moe_forward, moe_spec
 from repro_torch.models.layers.norms import apply_norm, norm_spec
 
-# The reference's other block kinds, none of them ported yet.
-_UNPORTED = {
-    "E": "the encoder block (audio family)",
-    "c": "the cross-attention decoder block (audio family)",
-}
-
-
 _ATTN = ("d", "e", "A")     # attention, then SwiGLU ('e': the experts);
                             # 'A' shares its weights
+_ENCDEC = ("E", "c")        # layernorm blocks with a GELU MLP (seamless)
 _RECURRENT = {"m": "mamba", "l": "mlstm", "s": "slstm"}   # kind -> params key
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _UNPORTED:
-        raise NotImplementedError(
-            f"repro_torch: block kind {kind!r}, {_UNPORTED[kind]}, is not "
-            "ported yet")
-    if kind not in _ATTN and kind not in _RECURRENT:
+    if kind not in _ATTN and kind not in _ENCDEC and kind not in _RECURRENT:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -62,12 +57,15 @@ class SeqContext(NamedTuple):
     positions: torch.Tensor                   # (B, S) int
     window: int                               # 0 = full attention
     cache_len: int                            # 0 = don't build decode caches
+    positions_3d: Optional[torch.Tensor] = None   # (B, S, 3) M-RoPE ids
+    enc_out: Optional[torch.Tensor] = None    # encoder output for 'c'
 
 
 class DecodeContext(NamedTuple):
     pos: torch.Tensor                         # (B,) index of each new token
     window: int
     live: Optional[torch.Tensor] = None       # (B,) bool rows that advance
+    positions_3d: Optional[torch.Tensor] = None   # (B, 1, 3) M-RoPE ids
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +85,22 @@ def block_spec(kind: str, cfg: ModelConfig):
     if kind == "s":
         return {"ln": norm_spec(cfg.norm_kind, d, dt_),
                 "slstm": xlstm_lib.slstm_spec(cfg)}
+    if kind == "E":
+        return {
+            "ln1": norm_spec("layernorm", d, dt_),
+            "attn": attn_lib.attention_spec(cfg),
+            "ln2": norm_spec("layernorm", d, dt_),
+            "mlp": gelu_mlp_spec(d, cfg.d_ff, dt_),
+        }
+    if kind == "c":
+        return {
+            "ln1": norm_spec("layernorm", d, dt_),
+            "attn": attn_lib.attention_spec(cfg),
+            "ln_x": norm_spec("layernorm", d, dt_),
+            "xattn": attn_lib.attention_spec(cfg, cross=True),
+            "ln2": norm_spec("layernorm", d, dt_),
+            "mlp": gelu_mlp_spec(d, cfg.d_ff, dt_),
+        }
     return {
         "ln1": norm_spec(cfg.norm_kind, d, dt_),
         "attn": attn_lib.attention_spec(cfg),
@@ -129,9 +143,20 @@ def _kv_cache_entry(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
-                     dtype, device=None):
-    """Zero cache entry for ONE block of this kind (unstacked)."""
+                     dtype, device=None, enc_len: int = 0):
+    """Zero cache entry for ONE block of this kind (unstacked). An ``'E'``
+    block has none; a ``'c'`` block adds the encoder's cross-attention
+    keys and values (``xk``/``xv``, ``enc_len`` rows in the activation
+    dtype, also when the self-attention KV is int8)."""
     _check_kind(kind)
+    if kind == "E":
+        return {}
+    if kind == "c":
+        entry = _kv_cache_entry(cfg, batch, cache_len, dtype, device)
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim_)
+        entry.update(xk=torch.zeros(shape, dtype=dtype, device=device),
+                     xv=torch.zeros(shape, dtype=dtype, device=device))
+        return entry
     if kind == "m":
         return mamba_lib.init_mamba_state(cfg, batch, dtype,
                                           device)._asdict()
@@ -158,25 +183,49 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
         y, state = _recurrent_seq(kind, params[_RECURRENT[kind]], h, cfg)
         return x + y, state._asdict() if ctx.cache_len else None
     s = x.shape[1]
-    h = apply_norm(cfg.norm_kind, params["ln1"], x)
-    q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.positions, cfg)
+    if kind == "E":
+        # Bidirectional, no window, no cache; RoPE only if the config has
+        # one (seamless: none).
+        h = apply_norm("layernorm", params["ln1"], x)
+        q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.positions, cfg,
+                                       positions_3d=ctx.positions_3d)
+        out = attn_lib.prefill_attention(q, k, v, causal=False)
+        x = x + attn_lib.attn_output(params["attn"], out)
+        return x + _mlp(kind, params, x, cfg), None
+    h = apply_norm(_norm_kind(kind, cfg), params["ln1"], x)
+    q, k, v = attn_lib.project_qkv(
+        params["attn"], h, ctx.positions, cfg,
+        positions_3d=None if kind == "c" else ctx.positions_3d)
     out = attn_lib.prefill_attention(q, k, v, causal=True, window=ctx.window)
     x = x + attn_lib.attn_output(params["attn"], out)
+    if kind == "c":
+        hx = apply_norm("layernorm", params["ln_x"], x)
+        xk, xv = attn_lib.cross_attention_kv(params["xattn"], ctx.enc_out)
+        x = x + attn_lib.cross_attention(params["xattn"], hx, xk, xv)
     x = x + _mlp(kind, params, x, cfg)
     cache = None
     if ctx.cache_len:
         cache = _build_kv_cache(k, v, s, ctx.cache_len, cfg)
+        if kind == "c":
+            cache.update(xk=xk, xv=xv)
     return x, cache
+
+
+def _norm_kind(kind: str, cfg: ModelConfig) -> str:
+    return "layernorm" if kind in _ENCDEC else cfg.norm_kind
 
 
 def _mlp(kind: str, params, x: torch.Tensor,
          cfg: ModelConfig) -> torch.Tensor:
     """``ln2``, then the feed-forward of an attention block: the experts of
     an ``'e'`` block (without the load-balance loss: nothing here
-    trains), SwiGLU otherwise."""
-    h2 = apply_norm(cfg.norm_kind, params["ln2"], x)
+    trains), the GELU MLP of an ``'E'`` / ``'c'`` block, SwiGLU
+    otherwise."""
+    h2 = apply_norm(_norm_kind(kind, cfg), params["ln2"], x)
     if kind == "e":
         return moe_forward(params["mlp"], h2, cfg)[0]
+    if kind in _ENCDEC:
+        return apply_gelu_mlp(params["mlp"], h2)
     return apply_swiglu(params["mlp"], h2)
 
 
@@ -216,8 +265,12 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
     _check_kind(kind)
     if kind in _RECURRENT:
         return _recurrent_decode(kind, params, x, cache, ctx, cfg)
-    h = apply_norm(cfg.norm_kind, params["ln1"], x)
-    q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.pos[:, None], cfg)
+    if kind == "E":
+        raise ValueError("an encoder block runs over the whole source, "
+                         "never one decode token")
+    h = apply_norm(_norm_kind(kind, cfg), params["ln1"], x)
+    q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.pos[:, None], cfg,
+                                   positions_3d=ctx.positions_3d)
     if cfg.kv_cache_bits == 8:
         qk, ks_new = attn_lib.quantize_kv_row(k)
         qv, vs_new = attn_lib.quantize_kv_row(v)
@@ -232,6 +285,10 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
                                              ctx.pos, ctx.live)
     out = attn_lib.decode_attention(q, k_use, v_use, ctx.pos + 1)
     x = x + attn_lib.attn_output(params["attn"], out)
+    if kind == "c":
+        hx = apply_norm("layernorm", params["ln_x"], x)
+        x = x + attn_lib.cross_attention(params["xattn"], hx, cache["xk"],
+                                         cache["xv"])
     return x + _mlp(kind, params, x, cfg), cache
 
 

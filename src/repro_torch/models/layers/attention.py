@@ -1,6 +1,7 @@
-"""Attention: GQA/MQA/MHA with RoPE, optional qk-norm, optional sliding
-window, chunked (online-softmax) prefill, and single-token decode against
-a KV cache (a ring buffer in sliding-window mode), plus the int8 KV pair.
+"""Attention: GQA/MQA/MHA with RoPE / M-RoPE, optional qk-norm, optional
+sliding window, chunked (online-softmax) prefill, cross attention for
+encoder-decoder models, and single-token decode against a KV cache (a
+ring buffer in sliding-window mode), plus the int8 KV pair.
 
 Shapes follow (batch, seq, heads, head_dim) throughout, as in the
 reference. One difference: a decode step takes ``pos`` as a ``(B,)``
@@ -9,8 +10,7 @@ sit at different positions (the reference vmaps batch-1 decodes, each
 with a scalar ``pos``). Cache writes are in place, at each row's own
 position; rows whose ``live`` flag is off keep their cache rows.
 
-Not ported: the flash backward (no training in the port) and cross
-attention (encoder-decoder models).
+Not ported: the flash backward (no training in the port).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 # ---------------------------------------------------------------------------
 
 
-def attention_spec(cfg: ModelConfig):
+def attention_spec(cfg: ModelConfig, cross: bool = False):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     p = {
         "wq": spec((d, h, hd), ("embed", "heads", "head_dim"), cfg.param_dtype),
@@ -45,7 +45,7 @@ def attention_spec(cfg: ModelConfig):
                    cfg.param_dtype),
         "wo": spec((h, hd, d), ("heads", "head_dim", "embed"), cfg.param_dtype),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = spec((hd,), ("head_dim",), cfg.param_dtype, init="ones")
         p["k_norm"] = spec((hd,), ("head_dim",), cfg.param_dtype, init="ones")
     return p
@@ -70,19 +70,25 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, rope: bool = True):
-    """Project to (q, k, v); applies qk-norm then RoPE to q and k."""
+                cfg: ModelConfig, *, rope: bool = True,
+                positions_3d: Optional[torch.Tensor] = None):
+    """Project to (q, k, v); applies qk-norm then RoPE/M-RoPE to q and k
+    (M-RoPE at ``positions_3d``, or at the text ids of ``positions``)."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
     q, k = _maybe_qk_norm(params, q, k)
     if rope and cfg.rope_kind != "none":
-        if cfg.rope_kind != "rope":
-            raise NotImplementedError(
-                f"repro_torch: rope_kind {cfg.rope_kind!r} is not ported "
-                "(M-RoPE comes with the VLM family)")
-        q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
-        k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.rope_kind == "mrope":
+            p3 = (positions_3d if positions_3d is not None
+                  else rope_lib.text_positions_3d(positions))
+            q = rope_lib.apply_mrope(q, p3, cfg.rope_theta,
+                                     cfg.mrope_sections)
+            k = rope_lib.apply_mrope(k, p3, cfg.rope_theta,
+                                     cfg.mrope_sections)
+        else:
+            q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+            k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -290,3 +296,21 @@ def attn_output(params, out: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     h, k, d = params["wo"].shape
     return torch.matmul(out.flatten(-2), params["wo"].reshape(h * k, d))
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder): K/V from encoder output, no RoPE.
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_kv(params, enc_out: torch.Tensor):
+    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
+
+
+def cross_attention(params, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention of ``x``'s queries over the encoder's keys (the
+    two lengths differ; dense up to 2,048 queries, chunked above)."""
+    q = _proj(x, params["wq"])
+    out = prefill_attention(q, k, v, causal=False)
+    return attn_output(params, out)

@@ -1,12 +1,19 @@
-"""Decoder assembly (the dense, moe, ssm and hybrid families): segment plan,
-parameter specs, the full-sequence forward (prefill), single-token decode,
-and the token-level head/tail split that runs the JALAD cut inside the
-decode loop.
+"""Architecture assembly for every decoder family (dense, moe, ssm,
+hybrid, vlm, audio): segment plan, parameter specs, the full-sequence
+forward (prefill), single-token decode, the one-shot head/tail split of a
+forward and the token-level head/tail split that runs the JALAD cut inside
+the decode loop.
 
-Text-only: positions are ``arange`` over the sequence, so a boundary
-carries everything the tail needs. Each decode step takes one position a
-row (``pos`` of shape ``(B,)``), so one batched call advances slots that
-sit at different positions; the reference vmaps batch-1 decodes instead.
+A text family's positions are ``arange`` over the sequence, so a boundary
+carries everything the tail needs. The vlm family prepends projected
+vision embeddings and rotates by M-RoPE ids on an (h, w) grid; the audio
+family runs an encoder over stub frame embeddings, whose output every
+``'c'`` block cross-attends to. Those two families' one-shot split carries
+the reference's extras beside the boundary, ``{"positions", "enc_out",
+"pos3d"}``, and their decode loop cannot stream across a cut
+(:func:`check_streamable`). Each decode step takes one position a row
+(``pos`` of shape ``(B,)``), so one batched call advances slots that sit
+at different positions; the reference vmaps batch-1 decodes instead.
 Caches are updated in place.
 
 A hybrid model (zamba2) invokes ONE shared attention block ``'A'`` after
@@ -83,15 +90,12 @@ def num_shared_invocations(plan: List[Segment]) -> int:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's tree for a text-only decoder: ``embed``,
-    ``final_norm``, ``segments`` (one stacked tree a segment, ``{}`` for a
-    shared one), ``lm_head`` unless the embeddings are tied, and the one
-    ``shared_attn`` block of a hybrid model."""
-    if cfg.is_encdec or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"repro_torch: family {cfg.family!r} is not ported yet: "
-            "this module has no vision prefix or M-RoPE (vlm) and no "
-            "encoder (audio)")
+    """The reference's tree: ``embed``, ``final_norm``, ``segments`` (one
+    stacked tree a segment, ``{}`` for a shared one), ``lm_head`` unless
+    the embeddings are tied, the one ``shared_attn`` block of a hybrid
+    model, a vlm's ``vision_proj`` and an encoder-decoder's ``encoder``
+    (its ``'E'`` blocks stacked in one segment, and its final
+    layernorm)."""
     dt_ = cfg.param_dtype
     specs: Dict[str, Any] = {
         "embed": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), dt_,
@@ -107,6 +111,17 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         )
     if cfg.shared_attention_every:
         specs["shared_attn"] = blk.block_spec("A", cfg)
+    if cfg.family == "vlm":
+        specs["vision_proj"] = spec(
+            (cfg.d_model, cfg.d_model), ("embed", "embed_out"), dt_
+        )
+    if cfg.is_encdec:
+        specs["encoder"] = {
+            "segments": [
+                stack_tree(blk.block_spec("E", cfg), cfg.num_encoder_layers)
+            ],
+            "final_norm": norm_spec("layernorm", cfg.d_model, dt_),
+        }
     return specs
 
 
@@ -155,16 +170,105 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
+def _vision_positions_3d(n_vis: int, text_len: int, batch: int,
+                         device=None) -> torch.Tensor:
+    """M-RoPE 3-D ids: vision tokens at t=0 on an h*w grid, then text tokens
+    t = 1..text_len with h = w = t (Qwen2-VL convention, simplified)."""
+    side = max(int(math.ceil(math.sqrt(n_vis))), 1)
+    idx = torch.arange(n_vis, device=device)
+    vis = torch.stack([torch.zeros_like(idx), idx // side, idx % side],
+                      dim=-1)
+    t = torch.arange(text_len, device=device) + 1
+    txt = torch.stack([t, t, t], dim=-1)
+    pos = torch.cat([vis, txt], dim=0)
+    return pos[None].expand(batch, n_vis + text_len, 3)
+
+
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding. Returns (x, positions)."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+    """Token (+ modality-stub) embedding. Returns (x, positions, pos3d):
+    a vlm batch with ``vision_embeds`` gets them projected (cast to the
+    activation dtype first) in front of the tokens, and their M-RoPE ids;
+    ``pos3d`` is None otherwise."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    return _embed(params, cfg, tokens), _positions(b, s, tokens.device)
+    x = _embed(params, cfg, tokens)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        vis = torch.matmul(batch["vision_embeds"].to(x.dtype),
+                           params["vision_proj"])
+        n_vis = vis.shape[1]
+        return (torch.cat([vis, x], dim=1),
+                _positions(b, n_vis + s, tokens.device),
+                _vision_positions_3d(n_vis, s, b, tokens.device))
+    return x, _positions(b, s, tokens.device), None
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def run_encoder(params, cfg: ModelConfig, src: torch.Tensor) -> torch.Tensor:
+    """Seamless-style encoder over precomputed (stub) frame embeddings."""
+    x = src.to(torch_dtype(cfg.dtype))
+    b, s, _ = x.shape
+    ctx = blk.SeqContext(_positions(b, s, x.device), 0, 0)
+    enc = params["encoder"]
+    for li in range(cfg.num_encoder_layers):
+        x, _ = blk.block_apply_seq("E", _layer(enc["segments"][0], li), x,
+                                   ctx, cfg)
+    return apply_norm("layernorm", enc["final_norm"], x)
+
+
+def has_extras(cfg: ModelConfig) -> bool:
+    """Whether the one-shot split carries extras beside the boundary (the
+    vlm's M-RoPE ids, the audio encoder's output)."""
+    return cfg.is_encdec or cfg.family == "vlm"
+
+
+def _seq_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The embedded input and the extras of a whole-sequence pass:
+    ``{"positions", "enc_out", "pos3d"}`` (the encoder runs first)."""
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = run_encoder(params, cfg, batch["src_frames"])
+    x, positions, pos3d = embed_inputs(params, cfg, batch)
+    return x, {"positions": positions, "enc_out": enc_out, "pos3d": pos3d}
+
+
+def _seq_ctx(cfg: ModelConfig, s: int, extras: Dict[str, Any],
+             cache_len: int = 0) -> blk.SeqContext:
+    return blk.SeqContext(extras["positions"], effective_window(cfg, s),
+                          cache_len, extras.get("pos3d"),
+                          extras.get("enc_out"))
+
+
+def _boundary_ctx(cfg: ModelConfig, boundary: torch.Tensor,
+                  extras: Optional[Dict[str, Any]],
+                  cache_len: int = 0) -> blk.SeqContext:
+    """The context of a pass that resumes from a boundary: the extras' own,
+    or (text families, no extras) positions rebuilt from its shape."""
+    b, s = boundary.shape[0], boundary.shape[1]
+    if extras is None:
+        if has_extras(cfg):
+            raise ValueError(
+                f"family {cfg.family!r} resumes from a boundary only with "
+                "the extras (positions, enc_out, pos3d) its head returned")
+        extras = {"positions": _positions(b, s, boundary.device)}
+    return _seq_ctx(cfg, s, extras, cache_len)
+
+
+def _decode_ctx(cfg: ModelConfig, pos, b: int, device, window: int,
+                live: Optional[torch.Tensor]) -> blk.DecodeContext:
+    """A decode step's context; M-RoPE ids ``(p, p, p)`` for each row's
+    own position (the reference lifts its one scalar ``pos``)."""
+    rows = _pos_rows(pos, b, device)
+    pos3d = None
+    if cfg.rope_kind == "mrope":
+        p = rows[:, None]
+        pos3d = torch.stack([p, p, p], dim=-1)
+    return blk.DecodeContext(rows, window, live, pos3d)
 
 
 def _pos_rows(pos, b: int, device) -> torch.Tensor:
@@ -219,9 +323,8 @@ def forward_seq(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
                 ) -> Tuple[torch.Tensor, Optional[List[Any]]]:
     """Returns (logits, caches). ``cache_len`` > 0 builds decode caches
     (prefill mode)."""
-    x, positions = embed_inputs(params, cfg, batch)
-    ctx = blk.SeqContext(positions, effective_window(cfg, x.shape[1]),
-                         cache_len)
+    x, extras = _seq_inputs(params, cfg, batch)
+    ctx = _seq_ctx(cfg, x.shape[1], extras, cache_len)
     x, caches = _run_seq(params, cfg, x, ctx, _all_ranges(cfg))
     return _logits(params, cfg, x), (caches if cache_len else None)
 
@@ -232,7 +335,8 @@ def forward_seq(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 
 def _init_cache_list(cfg: ModelConfig, batch: int, cache_len: int,
-                     counts: List[Tuple[int, int]], device) -> List[Any]:
+                     counts: List[Tuple[int, int]], device,
+                     enc_len: int = 0) -> List[Any]:
     """Each segment's initial cache entry repeated along a leading layer
     axis of ``count`` (zeros, and an mLSTM / sLSTM stabilizer's -1e30)."""
     plan = segment_plan(cfg)
@@ -240,18 +344,19 @@ def _init_cache_list(cfg: ModelConfig, batch: int, cache_len: int,
     caches = []
     for sj, count in counts:
         one = blk.init_block_cache(plan[sj].kind, cfg, batch, cache_len,
-                                   dtype, device)
+                                   dtype, device, enc_len)
         caches.append({k: v.expand((count,) + tuple(v.shape)).clone()
                        for k, v in one.items()})
     return caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
-                device=None) -> List[Any]:
-    """Zero decode caches; structure mirrors forward_seq's cache output."""
+                device=None, enc_len: int = 0) -> List[Any]:
+    """Zero decode caches; structure mirrors forward_seq's cache output
+    (a ``'c'`` block's cross K/V has ``enc_len`` rows)."""
     return _init_cache_list(cfg, batch, cache_len,
-                        [(sj, s.count) for sj, s in
-                         enumerate(segment_plan(cfg))], device)
+                            [(sj, s.count) for sj, s in
+                             enumerate(segment_plan(cfg))], device, enc_len)
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
@@ -260,9 +365,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
     """One decode step: tokens (B, 1), pos an int or (B,). Returns
     (logits (B, 1, V), caches), the caches updated in place."""
     x = _embed(params, cfg, tokens)
-    ctx = blk.DecodeContext(_pos_rows(pos, x.shape[0], x.device),
-                            effective_window(cfg, _decode_seq_hint(caches)),
-                            live)
+    ctx = _decode_ctx(cfg, pos, x.shape[0], x.device,
+                      effective_window(cfg, _decode_seq_hint(caches)), live)
     x = _run_decode(params, cfg, x, ctx, _all_ranges(cfg), caches)
     return _logits(params, cfg, x), caches
 
@@ -300,7 +404,7 @@ def point_to_segment(cfg: ModelConfig, point: int) -> Tuple[int, int]:
 def check_streamable(cfg: ModelConfig) -> None:
     """Families whose decode needs per-token extras beyond the boundary row
     (encoder output, vision positions) cannot stream over the cut."""
-    if cfg.is_encdec or cfg.family == "vlm":
+    if has_extras(cfg):
         raise ValueError(
             "token streaming ships only the boundary hidden row per token; "
             f"family {cfg.family!r} needs per-token extras (encoder output / "
@@ -356,9 +460,8 @@ def prefill_head(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Edge prefill: run blocks [0, point] over the prompt, building only
     the head's decode caches. Returns (boundary (B, S, d), head_caches)."""
     check_streamable(cfg)
-    x, positions = embed_inputs(params, cfg, batch)
-    ctx = blk.SeqContext(positions, effective_window(cfg, x.shape[1]),
-                         cache_len)
+    x, extras = _seq_inputs(params, cfg, batch)
+    ctx = _seq_ctx(cfg, x.shape[1], extras, cache_len)
     return _run_seq(params, cfg, x, ctx, _head_ranges(cfg, point))
 
 
@@ -369,9 +472,7 @@ def prefill_tail(params, cfg: ModelConfig, boundary: torch.Tensor,
     building the tail's decode caches. Positions are rebuilt from the
     boundary's shape. Returns (logits (B, S, V), tail_caches)."""
     check_streamable(cfg)
-    b, s = boundary.shape[0], boundary.shape[1]
-    ctx = blk.SeqContext(_positions(b, s, boundary.device),
-                         effective_window(cfg, s), cache_len)
+    ctx = _boundary_ctx(cfg, boundary, None, cache_len)
     x, caches = _run_seq(params, cfg, boundary, ctx, _tail_ranges(cfg, point))
     return _logits(params, cfg, x), caches
 
@@ -384,8 +485,8 @@ def decode_head(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
     row. ``seq_hint`` is the nominal sequence length (the shared cache
     length). Returns (boundary (B, 1, d), head caches, updated in place)."""
     x = _embed(params, cfg, tokens)
-    ctx = blk.DecodeContext(_pos_rows(pos, x.shape[0], x.device),
-                            effective_window(cfg, seq_hint), live)
+    ctx = _decode_ctx(cfg, pos, x.shape[0], x.device,
+                      effective_window(cfg, seq_hint), live)
     x = _run_decode(params, cfg, x, ctx, _head_ranges(cfg, point),
                     head_caches)
     return x, head_caches
@@ -398,9 +499,8 @@ def decode_tail(params, cfg: ModelConfig, boundary: torch.Tensor, pos,
     """Cloud half of one decode step: resume at block point+1 from the
     decoded (B, 1, d) boundary row. Returns (logits (B, 1, V), tail
     caches, updated in place)."""
-    ctx = blk.DecodeContext(
-        _pos_rows(pos, boundary.shape[0], boundary.device),
-        effective_window(cfg, seq_hint), live)
+    ctx = _decode_ctx(cfg, pos, boundary.shape[0], boundary.device,
+                      effective_window(cfg, seq_hint), live)
     x = _run_decode(params, cfg, boundary, ctx, _tail_ranges(cfg, point),
                     tail_caches)
     return _logits(params, cfg, x), tail_caches
@@ -409,27 +509,33 @@ def decode_tail(params, cfg: ModelConfig, boundary: torch.Tensor, pos,
 # ---------------------------------------------------------------------------
 # One-shot split of a full forward (the calibration and one-shot serving)
 # ---------------------------------------------------------------------------
+#
+# Each returns or takes the extras of ``_seq_inputs`` (None where a text
+# family resumes: its positions are rebuilt from the boundary's shape).
 
 
-def run_head(params, cfg: ModelConfig, batch, point: int) -> torch.Tensor:
-    """Blocks [0, point] over the whole sequence, no caches: the boundary."""
-    x, positions = embed_inputs(params, cfg, batch)
-    ctx = blk.SeqContext(positions, effective_window(cfg, x.shape[1]), 0)
-    return _run_seq(params, cfg, x, ctx, _head_ranges(cfg, point))[0]
+def run_head(params, cfg: ModelConfig, batch, point: int
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Blocks [0, point] over the whole sequence, no caches: (the
+    boundary, the extras)."""
+    x, extras = _seq_inputs(params, cfg, batch)
+    ctx = _seq_ctx(cfg, x.shape[1], extras)
+    return _run_seq(params, cfg, x, ctx, _head_ranges(cfg, point))[0], extras
 
 
-def run_tail(params, cfg: ModelConfig, boundary: torch.Tensor,
-             point: int) -> torch.Tensor:
+def run_tail(params, cfg: ModelConfig, boundary: torch.Tensor, point: int,
+             extras: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Blocks (point, end) and the logits, from a whole-sequence boundary."""
-    return prefill_tail(params, cfg, boundary, 0, point)[0]
+    ctx = _boundary_ctx(cfg, boundary, extras)
+    x, _ = _run_seq(params, cfg, boundary, ctx, _tail_ranges(cfg, point))
+    return _logits(params, cfg, x)
 
 
 def run_segment(params, cfg: ModelConfig, boundary: torch.Tensor,
-                from_point: int, to_point: int) -> torch.Tensor:
+                from_point: int, to_point: int,
+                extras: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Blocks (from_point, to_point] over a whole-sequence boundary."""
-    b, s = boundary.shape[0], boundary.shape[1]
-    ctx = blk.SeqContext(_positions(b, s, boundary.device),
-                         effective_window(cfg, s), 0)
+    ctx = _boundary_ctx(cfg, boundary, extras)
     tail = _tail_ranges(cfg, from_point)
     si2, off2 = point_to_segment(cfg, to_point)
     ranges = [(sj, lo, off2 + 1 if sj == si2 else hi)
@@ -438,13 +544,13 @@ def run_segment(params, cfg: ModelConfig, boundary: torch.Tensor,
     return _run_seq(params, cfg, boundary, ctx, ranges)[0]
 
 
-def run_heads(params, cfg: ModelConfig, batch,
-              points) -> Dict[int, torch.Tensor]:
+def run_heads(params, cfg: ModelConfig, batch, points
+              ) -> Tuple[Dict[int, torch.Tensor], Dict[str, Any]]:
     """The boundaries at several points from ONE sweep: the activation
-    after each wanted block, keyed by point."""
+    after each wanted block, keyed by point, and the sweep's extras."""
     want = set(points)
-    x, positions = embed_inputs(params, cfg, batch)
-    ctx = blk.SeqContext(positions, effective_window(cfg, x.shape[1]), 0)
+    x, extras = _seq_inputs(params, cfg, batch)
+    ctx = _seq_ctx(cfg, x.shape[1], extras)
     plan = segment_plan(cfg)
     taps: Dict[int, torch.Tensor] = {}
     point = 0
@@ -456,4 +562,4 @@ def run_heads(params, cfg: ModelConfig, batch,
             if point in want:
                 taps[point] = x
             point += 1
-    return taps
+    return taps, extras

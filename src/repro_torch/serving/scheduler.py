@@ -156,6 +156,16 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- internals
     def _prompt(self, req: GenRequest) -> dict:
+        """The prefill batch of one request: its tokens alone (a vlm
+        request is a text prompt). An encoder-decoder is refused here,
+        at its first prefill, where the reference fails for want of
+        ``src_frames``."""
+        if self.model.cfg.is_encdec:
+            raise ValueError(
+                f"continuous batching prefills token prompts alone; "
+                f"{self.model.cfg.arch_id} (family "
+                f"{self.model.cfg.family!r}) needs src_frames, the "
+                "encoder's input, which a GenRequest does not carry")
         return {"tokens": torch.as_tensor(
             np.asarray(req.tokens)[None, :], dtype=torch.int64,
             device=self.device)}

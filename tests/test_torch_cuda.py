@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
 the card, the batched cloud step that the fleet server runs, channel
-removal's mask and ``compress`` against their CPU runs, and the
-parameter draw on the card (``models/init.py``). Every
+removal's mask and ``compress`` against their CPU runs, the parameter
+draw on the card (``models/init.py``), and the vlm and audio families
+(reduced, float32) card against CPU, with K1-K5 on their boundaries. Every
 test here carries ``requires_cuda`` and skips without a card. The file
 imports neither JAX nor the reference package
 (the plain versions are pinned to the reference by the other
@@ -718,3 +719,88 @@ def test_model_init_draws_on_the_card(cuda):
     assert torch.equal(w, again["segments"][0]["mlp"]["w_gate"])
     assert w.shape == host["segments"][0]["mlp"]["w_gate"].shape
     assert not torch.equal(w, host["segments"][0]["mlp"]["w_gate"])
+
+
+# ---------------------------------------------------------------------------
+# The vlm and audio families: reduced models, card against CPU
+# ---------------------------------------------------------------------------
+
+MM_ARCHS = ("qwen2-vl-7b", "seamless-m4t-large-v2")
+# float32 with TF32 off: the card's matrix products sum in other orders
+# than the CPU's, ~1e-6 of the logits' scale.
+MM_RTOL = 1e-5
+
+
+def _mm_model(arch, cuda):
+    """The reduced model, its weights from seed 0 on the CPU and a copy on
+    the card, and a ``make_batch`` prompt of 32 (vlm: 16 stub vision rows
+    + 16 tokens; audio: 32 tokens and 8 stub frames)."""
+    from repro_torch.config import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.bridge import params_to
+
+    m = build_model(get_config(arch).reduced())
+    cpu_p = m.init(0, "cpu")
+    return m, cpu_p, params_to(cpu_p, cuda), make_batch(m.cfg, 2, 32, seed=1)
+
+
+def _rel(a, b):
+    return float((a.cpu().float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_multimodal_forward_and_decode_match_cpu(cuda, arch):
+    """Prefill (the encoder, the vision prefix and M-RoPE ids built on the
+    card) and one decode step from its caches."""
+    from repro_torch.models.api import batch_to
+
+    m, cpu_p, card_p, batch = _mm_model(arch, cuda)
+    with torch.no_grad():
+        lh, ch = m.prefill(cpu_p, batch_to(batch, "cpu"), 48)
+        lc, cc = m.prefill(card_p, batch_to(batch, cuda), 48)
+        assert lc.device.type == "cuda" and lc.shape == lh.shape
+        assert _rel(lc, lh) <= MM_RTOL
+        tok = lh[:, -1:].argmax(-1)
+        pos = batch["tokens"].shape[1]
+        sh, _ = m.decode_step(cpu_p, tok, pos, ch)
+        sc, _ = m.decode_step(card_p, tok.to(cuda), pos, cc)
+        assert _rel(sc, sh) <= MM_RTOL
+        x, extras = m.run_head(card_p, batch_to(batch, cuda), 0)
+        assert torch.equal(m.run_tail(card_p, x, 0, extras),
+                           m.forward(card_p, batch_to(batch, cuda)))
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_codecs_on_multimodal_boundaries_match_cpu(cuda, arch):
+    """K1-K5 through the three codecs on the (2, 32, 256) boundary of the
+    reduced model: the card's blobs (payload and ranges) equal the CPU's
+    plain versions byte for byte, the decodes bit for bit, each call one
+    launch of the codec's kernels."""
+    from repro_torch.models.api import batch_to
+
+    m, _, card_p, batch = _mm_model(arch, cuda)
+    with torch.no_grad():
+        x, _ = m.run_head(card_p, batch_to(batch, cuda), 0)
+    assert tuple(x.shape) == (2, 32, 256)
+    kernels = {"bitpack": ("fused_encode", "fused_decode"),
+               "huffman": ("huffman_pack", "fused_decode"),
+               "perchannel": ("pc_encode", "pc_decode")}
+    for name, (enc, dec) in kernels.items():
+        codec = get_codec(name)
+        for bits in (2, 4, 8):
+            with qops.count_launches() as box:
+                blob = codec.encode(x, bits)
+                back = codec.decode(blob, device=cuda)
+            assert box.counts[enc] == 1 and box.counts[dec] == 1
+            cpu = codec.encode(x.cpu(), bits)
+            assert blob.payload == cpu.payload
+            assert np.asarray(blob.x_min).tobytes() == np.asarray(
+                cpu.x_min).tobytes()
+            assert np.asarray(blob.x_max).tobytes() == np.asarray(
+                cpu.x_max).tobytes()
+            want = codec.decode(cpu, device="cpu")
+            assert torch.equal(back.cpu().view(torch.int32),
+                               want.view(torch.int32))
+    torch.cuda.synchronize()

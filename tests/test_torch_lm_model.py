@@ -218,19 +218,39 @@ def test_batched_rows_at_own_positions_equal_batch_one():
 
 
 def test_unported_families_raise():
-    from repro_torch.config import ModelConfig
+    """Every family of the reference builds now, vlm and audio included,
+    with every block kind; what the port still leaves out raises and
+    names its module: the meshed cloud (``serving/meshed.py``), the
+    fleet's token streams (``serving/streaming.py``) and the three-tier
+    streaming terms (``TriStreamPlanTerms``)."""
+    from repro_torch.config import JaladConfig, ModelConfig
+    from repro_torch.core.tri_planner import TriPlanSpace
     from repro_torch.models import blocks
+    from repro_torch.serving import fleet
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(ModelConfig(arch_id="x", family="vlm", num_layers=2,
+    for arch in ("qwen2-vl-7b", "seamless-m4t-large-v2"):
+        m = build_model(get_config(arch))
+        assert m.is_lm and m.has_extras
+        assert build_model(get_config(arch).reduced()).param_count() > 0
+    m = build_model(ModelConfig(arch_id="x", family="vlm", num_layers=2,
                                 d_model=64, num_heads=4, num_kv_heads=4,
                                 d_ff=128, vocab_size=64))
+    assert "vision_proj" in m.specs
     for kind in "Ec":
-        with pytest.raises(NotImplementedError, match="is not ported yet"):
-            blocks.block_spec(kind, get_config("olmo-1b").reduced())
+        assert blocks.block_spec(kind, get_config("olmo-1b").reduced())
     # The recurrent kinds, the shared attention block and the MoE block
     # are ported.
     for kind in "mlsA":
         assert blocks.block_spec(kind, get_config("zamba2-2.7b").reduced())
     spec = blocks.block_spec("e", get_config("grok-1-314b").reduced())
     assert set(spec["mlp"]) == {"router", "w_gate", "w_up", "w_down"}
+    with pytest.raises(NotImplementedError, match=r"serving/meshed\.py"):
+        fleet.build_fleet_server(get_config("resnet50").reduced(),
+                                 JaladConfig(), [], cloud_mesh=object())
+    for name in ("attach_stream", "step_streams", "run_streams"):
+        with pytest.raises(NotImplementedError,
+                           match=r"serving/streaming\.py"):
+            getattr(fleet.FleetServer, name)(*[None] * (
+                2 if name == "attach_stream" else 1))
+    with pytest.raises(NotImplementedError, match="TriStreamPlanTerms"):
+        TriPlanSpace.with_streaming(None, 64, 16.0)

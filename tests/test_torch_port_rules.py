@@ -37,6 +37,9 @@ SSM_MODULES = (
 # The compression shim and the paper's channel removal.
 CORE_MODULES = ("repro_torch.core.compression",
                 "repro_torch.core.channel_removal")
+# The vlm and audio families' configs.
+MM_MODULES = ("repro_torch.configs.qwen2_vl_7b",
+              "repro_torch.configs.seamless_m4t_large_v2")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -56,9 +59,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True,
                          timeout=300).stdout.split(" ")
-    assert int(out[0]) >= 62          # every module of the port was imported
+    assert int(out[0]) >= 64          # every module of the port was imported
     assert out[1].strip() == "[]"
-    assert set(LM_MODULES + SSM_MODULES + CORE_MODULES) <= set(
+    assert set(LM_MODULES + SSM_MODULES + CORE_MODULES + MM_MODULES) <= set(
         out[2].strip().split(","))
 
 

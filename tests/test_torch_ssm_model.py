@@ -135,8 +135,9 @@ def test_param_tree_matches_reference_at_full_width(arch):
 
 
 def test_block_kinds_and_reduced_trees():
-    """m, l, s, A and e build; E and c still raise. The reduced trees
-    bridged from the reference keep its shapes (sLSTM variant included)."""
+    """m, l, s, A, e, E and c build (E and c with their layernorms and
+    GELU MLPs); an unknown kind raises. The reduced trees bridged from the
+    reference keep its shapes (sLSTM variant included)."""
     from repro_torch.models import blocks
 
     cfg = get_config("zamba2-2.7b").reduced()
@@ -144,8 +145,12 @@ def test_block_kinds_and_reduced_trees():
         assert blocks.block_spec(kind, cfg)
     assert blocks.block_spec("e", get_config("grok-1-314b").reduced())
     for kind in "Ec":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            blocks.block_spec(kind, cfg)
+        spec = blocks.block_spec(kind, cfg)
+        assert set(spec["mlp"]) == {"w_in", "b_in", "w_out", "b_out"}
+        assert set(spec["ln1"]) == {"scale", "bias"}
+    assert "ln_x" in blocks.block_spec("c", cfg)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.block_spec("z", cfg)
     for name in VARIANTS:
         jm, jp, m, p = _models(name)
         assert jax.tree.map(lambda a: tuple(a.shape), jp) == jax.tree.map(
