@@ -130,9 +130,14 @@ NVIDIA card.
    each request's tokens equal a one-slot session's; the same run, phase
    by phase with a synchronize after each (head, encode, decode, tail,
    join), gives the per-token card times, and ``torch.profiler`` over 5
-   steps the device kernels and busy share of a step. Then reduced
-   olmo-1b in float32, card against CPU: logits within ``LM_SMALL_RTOL``,
-   equal greedy tokens.
+   steps the device kernels and busy share of a step; (f) two sessions of
+   three of the requests each, on one plan (``seg0_d7``, 8 bits,
+   bitpack), attached to one ``FleetServer`` and stepped by
+   ``step_streams`` with the counters set to 0 around each step: one K1
+   and one K2 launch for the step's cloud group (both sessions' rows in
+   one launch) plus one of each a join, and each session's tokens equal to
+   the same session run alone. Then reduced olmo-1b in float32, card
+   against CPU: logits within ``LM_SMALL_RTOL``, equal greedy tokens.
 9. Serves the recurrent families at full width and depth, bfloat16,
    random weights from seed 0: zamba2-2.7b (54 Mamba2 blocks, one shared
    attention block after every 6) and xlstm-1.3b (42 mLSTM, 6 sLSTM
@@ -190,7 +195,27 @@ NVIDIA card.
    the vlm's engine on text prompts, greedy and sampled, batched equal to
    solo; the audio engine refused (no ``src_frames``); (d) each model
    reduced, float32, card against CPU.
-12. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+12. Trains full-width olmo-1b (bfloat16, 1,176,764,416 parameters,
+   random weights from seed 0 drawn on the card): (a) reduced olmo-1b and
+   reduced grok-1-314b (its load-balance loss in the loss), float32, TF32
+   off, ``TRAIN_SMALL_STEPS`` steps of ``train`` on the card and on the
+   CPU from the same weights and batches: losses within
+   ``TRAIN_SMALL_LOSS_RTOL``, AdamW moments within
+   ``TRAIN_SMALL_MOMENT_RTOL`` of each leaf's scale, parameters within
+   ``TRAIN_SMALL_LRS`` times the summed learning rate; (b) ``train()``
+   at full width and depth, ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+   ``TRAIN_SEQ`` tokens from ``ShardedLoader``: the median step time,
+   tokens/s, peak memory, the
+   losses (the mean of the last three must be below the first three's)
+   and the step's share of the bf16 peak; (c) ``save_checkpoint`` of the
+   parameters and the AdamW state to a temporary directory and
+   ``restore_checkpoint``, every leaf equal bit for bit; (d) the restored
+   weights served: ``ServeSession``'s greedy tokens and a token stream at
+   ``seg0_d7``, 8 bits, bitpack (its K1 and K2 launches counted as the
+   ``train_serve`` path, the counters set to 0 just before and read just
+   after) equal to the trained weights' in memory; (e) one more train
+   step under ``torch.profiler``: device kernels, device time, busy share.
+13. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -385,6 +410,37 @@ MM_CALIB = (2, 32)
 # prompt must hold its 16 stub vision rows and some text.
 MM_SMALL_RTOL = 1e-5
 MM_SMALL_SEQ = {"qwen2-vl-7b": 24, "seamless-m4t-large-v2": 12}
+
+# Training (step 12): full-width olmo-1b in bfloat16, random weights from
+# seed 0 drawn on the card, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+# tokens from ShardedLoader (random tokens, so the loss falls toward
+# ln(vocab) from the random weights' higher one) at TRAIN_LR with a short
+# warm-up. The first step carries cuBLAS's set-up, so the median is over
+# the rest. 6 x parameters x tokens floating-point operations a step, at
+# the H100's bf16 dense peak (989 TFLOP/s, NVIDIA's data sheet, 700 W).
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 12
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+BF16_PEAK_FLOPS = 989e12
+# (a) reduced models in float32 (TF32 off), TRAIN_SMALL_STEPS steps on the
+# card and on the CPU from the same weights and batches: each step's loss
+# within TRAIN_SMALL_LOSS_RTOL of the CPU's (the products sum in other
+# orders, ~1e-6); the float32 AdamW moments, which hold the gradients
+# (mu their running mean, nu their squares'), within
+# TRAIN_SMALL_MOMENT_RTOL of each leaf's largest magnitude (a gradient
+# fault, such as half the batch or a lost scale, moves them by O(1)); and,
+# coarsely, every parameter within TRAIN_SMALL_LRS times the summed
+# learning rate: AdamW moves a parameter by about the learning rate a step
+# whatever its gradient's size, so a gradient that rounds across zero
+# moves it the other way.
+TRAIN_SMALL = ("olmo-1b", "grok-1-314b")
+TRAIN_SMALL_STEPS = 3
+TRAIN_SMALL_LOSS_RTOL = 1e-5
+TRAIN_SMALL_MOMENT_RTOL = 1e-3
+TRAIN_SMALL_LRS = 2.5
+# The profiled train step lists the PROFILE_TOP operators whose kernels
+# took the most device time.
+PROFILE_TOP = 8
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -1896,16 +1952,24 @@ def lm_requests(vocab: int, n: int, seed: int):
             for i in range(n)]
 
 
+def submit_all(sess, reqs, temperature: float = LM_TEMPERATURE):
+    """Submit ``reqs``, ``(uid, (prompt, max_new_tokens, arrival))``, to
+    an engine or a session; returns it."""
+    from repro_torch.serving.scheduler import GenRequest
+
+    for i, (prompt, n_new, arrival) in reqs:
+        sess.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=n_new,
+                               temperature=temperature, arrival=arrival))
+    return sess
+
+
 def lm_run(engine, reqs, solo: bool = False,
            temperature: float = 0.0) -> dict:
     """Serve ``reqs`` through ``engine`` (arrivals dropped when ``solo``);
     the tokens of each request by uid."""
-    from repro_torch.serving.scheduler import GenRequest
-
-    for i, (prompt, new, arrival) in reqs:
-        engine.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=new,
-                                 temperature=temperature,
-                                 arrival=0 if solo else arrival))
+    if solo:
+        reqs = [(i, (prompt, new, 0)) for i, (prompt, new, _) in reqs]
+    submit_all(engine, reqs, temperature)
     return {r.uid: r.result.tolist() for r in engine.run()}
 
 
@@ -2064,11 +2128,7 @@ def timed_stream_run(torch, sess, reqs, temperature: float) -> dict:
     (prefill across the cut) and per step the head decode, the encode,
     the decode and the tail (tail decode + token select). Returns the
     tokens and the per-phase times."""
-    from repro_torch.serving.scheduler import GenRequest
-
-    for i, (prompt, new, arrival) in reqs:
-        sess.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=new,
-                               temperature=temperature, arrival=arrival))
+    submit_all(sess, reqs, temperature)
     phases = {"join": [], "head": [], "encode": [], "decode": [],
               "tail": [], "frame_bytes": []}
 
@@ -2305,13 +2365,9 @@ def lm_stream_phase(torch, make, model, point, reqs, codec, counts,
     per-phase times and ``torch.profiler`` over LM_PROFILE_STEPS steps.
     Returns the stream's dict."""
     from repro_torch.kernels.quantize import ops as qops
-    from repro_torch.serving.scheduler import GenRequest
 
     names = model.decoupling_points()
-    sess = make(LM_MAX_BATCH)
-    for i, (prompt, n_new, arrival) in reqs:
-        sess.submit(GenRequest(uid=i, tokens=prompt, max_new_tokens=n_new,
-                               temperature=LM_TEMPERATURE, arrival=arrival))
+    sess = submit_all(make(LM_MAX_BATCH), reqs)
     steps = grouped_steps = 0
     t1 = sync_clock(torch)
     while sess.queue or sess.num_active:
@@ -2446,10 +2502,82 @@ def lm_codec_streams(torch, model, params, server, point, reqs, counts,
     return streams
 
 
+def lm_fleet_streams(torch, model, params, server, point, reqs):
+    """(f) of step 8: two sessions of the requests' halves on one plan
+    (``point``, LM_STREAM_BITS bits, bitpack) attached to one
+    ``FleetServer``; the counters set to 0 around every ``step_streams``:
+    one K1 and one K2 launch for the step's cloud group plus one of each a
+    join. Each session's tokens must equal the same session run alone.
+    Returns (the phase's dict, its launch counts)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.config.types import EDGE_TX2
+    from repro_torch.core.decoupler import DecoupledPlan
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.serving.fleet import FleetServer
+
+    plan = DecoupledPlan(point, LM_STREAM_BITS, 0.0, 0.0, 0.0, "bitpack")
+    runner = server.engine.make_runner(params, plan)
+    parts = (reqs[: len(reqs) // 2], reqs[len(reqs) // 2:])
+
+    def make(part):
+        return submit_all(runner.stream_session(ServeConfig(
+            max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)), part)
+
+    fleet = FleetServer(server.engine, params, [EDGE_TX2])
+    sessions = [make(part) for part in parts]
+    for sess in sessions:
+        fleet.attach_stream(sess)
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+    steps = shared = 0
+    t1 = sync_clock(torch)
+    while any(sess.queue or sess.num_active for sess in sessions):
+        joins = [len(sess.events) for sess in sessions]
+        groups = len(fleet.cloud_groups)
+        qops.reset_launch_counts()
+        fleet.step_streams()
+        got = qops.launch_counts()
+        n_join = sum(1 for sess, j in zip(sessions, joins)
+                     for e in sess.events[j:] if e[0] == "join")
+        grouped = len(fleet.cloud_groups) - groups
+        want = dict.fromkeys(got, 0)
+        want["fused_encode"] = want["fused_decode"] = n_join + grouped
+        check(grouped <= 1 and got == want,
+              f"fleet streams step {steps}: launches "
+              f"{ {k: v for k, v in got.items() if v} }, expected "
+              f"{ {k: v for k, v in want.items() if v} } ({n_join} joins, "
+              f"{grouped} groups)")
+        if grouped:
+            uids = fleet.cloud_groups[-1].uids
+            shared += all(any(u in uids for u, _ in part) for part in parts)
+        for k, v in got.items():
+            counts[k] += v
+        steps += 1
+    wall_ms = (sync_clock(torch) - t1) * 1e3
+    check(fleet.run_streams() == 0, "fleet streams left work")
+    check(shared > 0, "no fleet step grouped both sessions' rows")
+    for sess, part in zip(sessions, parts):
+        toks = {r.uid: r.result.tolist() for r in sess.completed}
+        alone = make(part)
+        alone.run()
+        check(toks == {r.uid: r.result.tolist() for r in alone.completed},
+              "a fleet stream's tokens differ from its session alone")
+    n_tok = sum(sess.tokens_out for sess in sessions)
+    out = dict(sessions=len(sessions), steps=steps, shared_steps=shared,
+               groups=len(fleet.cloud_groups), tokens=n_tok,
+               wall_ms=wall_ms, tokens_per_s=n_tok / wall_ms * 1e3)
+    print(f"  (f) fleet: 2 sessions on {model.decoupling_points()[point]}/"
+          f"{LM_STREAM_BITS} bits bitpack, {steps} steps ({shared} with both "
+          f"sessions' rows in one group), {n_tok} tokens in {wall_ms:.1f} ms "
+          f"({out['tokens_per_s']:.1f} tokens/s); one K1 and one K2 a "
+          "group plus one of each a join; each session == alone")
+    return out, counts
+
+
 def serve_lm(torch, results):
     """Step 8: full-width olmo-1b (bfloat16, random weights from seed 0)
-    through ServeSession, the continuous-batching engine and token
-    streaming across the JALAD cut with each codec."""
+    through ServeSession, the continuous-batching engine, token streaming
+    across the JALAD cut with each codec, and two streams batched by one
+    fleet."""
     from repro_torch.kernels.quantize import ops as qops
 
     model, params, init_s = load_lm(torch, LM_ARCH)
@@ -2468,13 +2596,17 @@ def serve_lm(torch, results):
     counts = dict.fromkeys(qops.launch_counts(), 0)
     streams = lm_codec_streams(torch, model, params, server,
                                LM_STREAM_POINT, reqs, counts, CODECS)
+    fleet, fleet_counts = lm_fleet_streams(torch, model, params, server,
+                                           LM_STREAM_POINT, reqs)
     rel = lm_small_check(torch, cfg, LM_SMALL_RTOL)
     print(f"  lm stream launches "
-          f"{({k: v for k, v in counts.items() if v})}")
+          f"{({k: v for k, v in counts.items() if v})}; fleet streams "
+          f"{({k: v for k, v in fleet_counts.items() if v})}")
     out.update(session=session, engine=engine, streams=streams,
-               launches=counts, small_rel=rel, **plan_out)
+               fleet_streams=fleet, launches=counts,
+               fleet_launches=fleet_counts, small_rel=rel, **plan_out)
     results["lm"] = out
-    return counts
+    return {"lm_stream": counts, "fleet_stream": fleet_counts}
 
 
 def rnn_chunked_vs_sequential(torch, model, params) -> float:
@@ -2976,6 +3108,238 @@ def serve_mm_lm(torch, results):
     return counts
 
 
+def train_small_check(torch, arch: str) -> dict:
+    """(a) of step 12: ``arch`` reduced, float32, TRAIN_SMALL_STEPS steps
+    of ``train`` on the card and on the CPU from the same weights and
+    batches; losses and parameters within the step's tolerances."""
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data.synthetic import ShardedLoader
+    from repro_torch.models.api import build_model
+    from repro_torch.models.bridge import params_to
+    from repro_torch.optim.adamw import cosine_lr
+    from repro_torch.training.loop import train
+
+    small = get_config(arch).reduced()
+    model = build_model(small)
+    cpu_p = model.init(0, "cpu")
+    card_p = params_to(cpu_p, torch.device("cuda"))
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                     total_steps=TRAIN_SMALL_STEPS, log_every=0)
+    runs = [train(model, tc, ShardedLoader(small, 4, 32, seed=0),
+                  params=p, num_steps=TRAIN_SMALL_STEPS)
+            for p in (card_p, cpu_p)]
+    card, cpu = runs
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(card.losses, cpu.losses))
+    lr_sum = sum(float(cosine_lr(tc, torch.tensor(s, dtype=torch.int32)))
+                 for s in range(1, TRAIN_SMALL_STEPS + 1))
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        _leaves(card.params), _leaves(cpu.params)))
+    moment_rel = max(
+        float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        for a, b in zip(_leaves((card.opt_state.mu, card.opt_state.nu)),
+                        _leaves((cpu.opt_state.mu, cpu.opt_state.nu))))
+    check(loss_rel <= TRAIN_SMALL_LOSS_RTOL,
+          f"reduced {arch} card/cpu training losses {loss_rel:.2e}")
+    check(moment_rel <= TRAIN_SMALL_MOMENT_RTOL,
+          f"reduced {arch} card/cpu AdamW moments {moment_rel:.2e}")
+    check(diff <= TRAIN_SMALL_LRS * lr_sum,
+          f"reduced {arch} card/cpu parameters after training {diff:.2e}")
+    check(all(t.device.type == "cuda" for t in _leaves(card.params)),
+          f"reduced {arch} trained off the card")
+    print(f"  (a) reduced {arch} f32, {TRAIN_SMALL_STEPS} steps card vs "
+          f"CPU: losses {[round(v, 5) for v in card.losses]}, within "
+          f"{loss_rel:.2e} (rtol {TRAIN_SMALL_LOSS_RTOL}); moments within "
+          f"{moment_rel:.2e} of each leaf's scale (rtol "
+          f"{TRAIN_SMALL_MOMENT_RTOL}); parameters within {diff:.2e} (bound "
+          f"{TRAIN_SMALL_LRS} x the summed lr {lr_sum:.2e})")
+    return dict(losses=card.losses, cpu_losses=cpu.losses,
+                loss_rel=loss_rel, moment_rel=moment_rel, param_diff=diff,
+                lr_sum=lr_sum)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal tensors bit for bit, whatever their float type."""
+    view = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32, torch.float64: torch.int64}
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        return False
+    if a.dtype in view:
+        return torch.equal(a.view(view[a.dtype]), b.view(view[a.dtype]))
+    return torch.equal(a, b)
+
+
+def profile_train_step(torch, model, params, opt_state, tc, batch) -> dict:
+    """One more train step under ``torch.profiler``: its device kernels,
+    their summed device time and the busy share of its host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.loop import make_train_step
+
+    step = make_train_step(model, tc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # The device time of the kernels each operator launched itself.
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:PROFILE_TOP]
+    return dict(step_ms=wall_ms, kernels=len(kernels), device_ms=busy_ms,
+                busy_share=busy_ms / wall_ms,
+                top=[(e.key, e.count, e.self_device_time_total / 1e3)
+                     for e in top])
+
+
+def serve_train(torch, results):
+    """Step 12: training and checkpoints on full-width olmo-1b, then its
+    restored weights served across the JALAD cut. Returns the launch
+    counts of the restored weights' stream (the ``train_serve`` path)."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.config import ServeConfig, TrainConfig
+    from repro_torch.core.decoupler import DecoupledPlan, DecoupledRunner
+    from repro_torch.data.synthetic import ShardedLoader, make_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.models.api import batch_to
+    from repro_torch.serving.engine import ServeSession
+    from repro_torch.training.loop import train
+
+    out = dict(card=card_line(), small={})
+    for arch in TRAIN_SMALL:
+        out["small"][arch] = train_small_check(torch, arch)
+
+    model, params, init_s = load_lm(torch, TRAIN_ARCH, draw="device")
+    cfg = model.cfg
+    n_params = model.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"train: {cfg.arch_id} ({n_params:,} parameters, {cfg.dtype}, "
+          f"{p_bytes / 1e9:.2f} GB), weights from seed 0 drawn on the card "
+          f"in {init_s:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"lr {TRAIN_LR}, warm-up {TRAIN_WARMUP}")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = sync_clock(torch)
+    res = train(model, tc, ShardedLoader(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                         seed=0),
+                params=params, num_steps=TRAIN_STEPS)
+    train_s = sync_clock(torch) - t1
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    check(all(math.isfinite(v) for v in losses), f"training losses {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    check(last < first, f"the loss did not fall: first three {first:.4f}, "
+          f"last three {last:.4f}")
+    check(all(t.device.type == "cuda" for t in _leaves(res.params)),
+          "trained parameters left the card")
+    step_ms = statistics.median(res.step_s[1:]) * 1e3
+    flops = 6.0 * n_params * tokens
+    bound_ms = flops / BF16_PEAK_FLOPS * 1e3
+    m_bytes = sum(t.numel() * t.element_size()
+                  for t in _leaves(res.opt_state.mu) + _leaves(
+                      res.opt_state.nu))
+    out.update(arch=cfg.arch_id, params=n_params, param_bytes=p_bytes,
+               moment_bytes=m_bytes, init_s=init_s, steps=TRAIN_STEPS,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+               step_ms=[v * 1e3 for v in res.step_s],
+               median_step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               first_step_ms=res.step_s[0] * 1e3, train_s=train_s,
+               peak_bytes=peak, flops=flops, flops_bound_ms=bound_ms,
+               mfu=bound_ms / step_ms)
+    print(f"  (b) train(): {TRAIN_STEPS} steps in {train_s:.1f} s; median "
+          f"step {step_ms:.1f} ms (first {res.step_s[0] * 1e3:.1f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first three {first:.4f}, last three "
+          f"{last:.4f}); peak memory {peak / 1e9:.2f} GB (moments "
+          f"{m_bytes / 1e9:.2f} GB); {flops / 1e12:.2f} TFLOP a step, "
+          f"{bound_ms:.2f} ms at the bf16 peak ({out['mfu']:.1%} of it)")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        free = shutil.disk_usage(d).free
+        t1 = sync_clock(torch)
+        path = save_checkpoint(d, TRAIN_STEPS, res.params, res.opt_state)
+        save_s = time.perf_counter() - t1
+        disk = sum(f.stat().st_size for f in Path(path).iterdir())
+        t1 = sync_clock(torch)
+        p2, s2, step = restore_checkpoint(d, res.params, res.opt_state)
+        restore_s = sync_clock(torch) - t1
+    check(step == TRAIN_STEPS and int(s2.step) == TRAIN_STEPS,
+          f"restored step {step}, optimizer step {int(s2.step)}")
+    pairs = list(zip(_leaves(res.params) + _leaves(res.opt_state),
+                     _leaves(p2) + _leaves(s2)))
+    check(all(bits_equal(torch, a, b) for a, b in pairs),
+          "a restored leaf differs from the trained one")
+    del s2
+    out.update(checkpoint=dict(disk_bytes=disk, free_bytes=free,
+                               save_s=save_s, restore_s=restore_s,
+                               leaves=len(pairs)))
+    print(f"  (c) checkpoint: {len(pairs)} leaves, {disk / 1e9:.2f} GB on "
+          f"disk ({free / 1e9:.0f} GB were free), saved in {save_s:.1f} s, "
+          f"restored in {restore_s:.1f} s; every leaf equal bit for bit")
+
+    b, s, new = LM_SESSION
+    batch = make_batch(cfg, b, s, seed=0)
+    sc = ServeConfig(max_batch=b, max_seq_len=s + new)
+    toks = ServeSession(model, res.params, sc).generate(batch, new)
+    toks2 = ServeSession(model, p2, sc).generate(batch, new)
+    check(toks.shape == (b, new) and (toks == toks2).all(),
+          "restored weights' greedy tokens differ from the trained ones'")
+    plan = DecoupledPlan(LM_STREAM_POINT, LM_STREAM_BITS, 0.0, 0.0, 0.0,
+                         "bitpack")
+    reqs = list(enumerate(lm_requests(cfg.vocab_size, LM_REQUESTS, seed=1)))
+
+    def stream(weights):
+        return submit_all(DecoupledRunner(model, weights, plan).stream_session(
+            ServeConfig(max_batch=LM_MAX_BATCH, max_seq_len=LM_SEQ)), reqs)
+
+    ref = stream(res.params)
+    ref.run()
+    sess = stream(p2)
+    qops.reset_launch_counts()
+    t1 = sync_clock(torch)
+    sess.run()
+    wall_ms = (sync_clock(torch) - t1) * 1e3
+    counts = qops.launch_counts()
+    check(counts["fused_encode"] > 0 and counts["fused_decode"] > 0,
+          f"the restored stream launched {counts}")
+    got = {r.uid: r.result.tolist() for r in sess.completed}
+    check(got == {r.uid: r.result.tolist() for r in ref.completed},
+          "restored weights' stream tokens differ from the trained ones'")
+    out.update(serve=dict(greedy_tokens=toks.tolist(),
+                          stream_tokens=sess.tokens_out,
+                          stream_wall_ms=wall_ms, launches=counts))
+    print(f"  (d) restored weights: ServeSession greedy tokens == the "
+          f"trained weights' ({toks[0, :8].tolist()}...); stream at "
+          f"{model.decoupling_points()[LM_STREAM_POINT]}/{LM_STREAM_BITS} "
+          f"bits bitpack, {sess.tokens_out} tokens in {wall_ms:.1f} ms "
+          f"== the trained weights', launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+    tb = batch_to(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=5),
+                  torch.device("cuda"))
+    prof = profile_train_step(torch, model, res.params, res.opt_state, tc,
+                              tb)
+    out["profile"] = prof
+    print(f"  (e) one profiled train step: {prof['step_ms']:.1f} ms, "
+          f"{prof['kernels']} device kernels, {prof['device_ms']:.1f} ms of "
+          f"device time (busy {prof['busy_share']:.1%}); operators by the "
+          "device time of their kernels:")
+    for name, calls, ms in prof["top"]:
+        print(f"      {ms:8.2f} ms  {name} ({calls} calls)")
+    results["train"] = out
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [v for k in sorted(tree) for v in _leaves(tree[k])]
@@ -3047,10 +3411,12 @@ def main(argv=None) -> int:
     rnn = step("recurrent lm serving", serve_recurrent_lm)
     moe = step("moe lm serving", serve_moe_lm)
     mm = step("multimodal lm serving", serve_mm_lm)
+    trained = step("training", serve_train)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
              "threelaunch": k6_path, "channel_removal": removal,
-             "three_tier": three, "lm_stream": lm,
-             "rnn_stream": rnn, "moe_stream": moe, "mm_serve": mm}
+             "three_tier": three, **lm,
+             "rnn_stream": rnn, "moe_stream": moe, "mm_serve": mm,
+             "train_serve": trained}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

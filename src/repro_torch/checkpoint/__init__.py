@@ -1,0 +1,7 @@
+from repro_torch.checkpoint.store import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

@@ -1,5 +1,6 @@
 from repro_torch.config.types import (
     ModelConfig,
+    TrainConfig,
     ServeConfig,
     JaladConfig,
     DeviceProfile,
@@ -18,6 +19,7 @@ from repro_torch.config.registry import (
 
 __all__ = [
     "ModelConfig",
+    "TrainConfig",
     "ServeConfig",
     "JaladConfig",
     "DeviceProfile",

@@ -154,8 +154,25 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Serving
+# Training / serving
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient accumulation factor
+    remat: str = "none"              # "none" | "full" | "dots" | "blocks"
+    seed: int = 0
+    log_every: int = 10
+    checkpoint_every: int = 0        # 0 -> disabled
+    checkpoint_dir: str = ""
 
 
 @dataclass(frozen=True)

@@ -7,8 +7,9 @@ The three-tier split (device -> edge server -> cloud) is here too:
 :class:`TriDecoupledRunner` and the engine's ``tri_space`` /
 ``decide_tri``; so is token streaming: the engine's ``stream_terms`` /
 ``decide_streaming`` and ``DecoupledRunner.stream_session``; so is
-``compress_state``, the recurrent-state extension. Not ported:
-``run_simulated`` and the meshed cloud.
+``compress_state``, the recurrent-state extension; so is
+``run_simulated``, the codec's value transform without a wire. Not
+ported: the meshed cloud.
 """
 from __future__ import annotations
 
@@ -165,6 +166,16 @@ class DecoupledRunner:
         """Full decoupled inference; returns (logits, transfer_bytes)."""
         blob, extras = self.edge_step(batch)
         return self.cloud_step(blob, extras), blob.nbytes
+
+    @torch.no_grad()
+    def run_simulated(self, batch) -> torch.Tensor:
+        """The end-to-end path without a wire: the head, the codec's value
+        transform (``codec.simulate``), the cast to the model's dtype, the
+        tail. The boundary values equal those a decoded blob carries."""
+        boundary, extras = _pair(self.model.run_head(
+            self.params, batch_to(batch, self.device), self.plan.point))
+        xq = self._codec.simulate(boundary, self.plan.bits).to(self._dtype)
+        return self.model.run_tail(self.params, xq, self.plan.point, extras)
 
     def stream_session(self, serve_cfg, cloud_kv_bits: int = 8):
         """Token-level serving under this runner's plan: a

@@ -3,9 +3,8 @@
 
 The port's own copy of the reference's ``core/tri_planner.py``, kept
 float64 bit-identical (same operations in the same order, ties broken
-alike), so both packages decide the same plans from the same tables. The
-per-token streaming extension (``TriStreamPlanTerms``) waits for the LM
-stack and is not ported yet: :meth:`TriPlanSpace.with_streaming` raises.
+alike), so both packages decide the same plans from the same tables,
+the per-token streaming extension (``TriStreamPlanTerms``) included.
 
 The two-tier :class:`~repro_torch.core.planner.PlanSpace` prices one cut
 ``i`` over one link. The general case (DNN-partition survey, arXiv:2304.10020;
@@ -484,13 +483,11 @@ class TriPlanSpace:
         f = sol.point * self.n_inner * self.n_inner + sol.bits_index
         return self._plan_from_flat(f, sol.objective, sol.solve_ms)
 
-    def with_streaming(self, d_model: int, tokens_per_batch: float):
-        """The per-token streaming extension (the reference's
-        ``TriStreamPlanTerms``) prices token-level decode of the LM stack,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "repro_torch: TriPlanSpace.with_streaming (TriStreamPlanTerms) "
-            "is not ported yet; it waits for the LM stack")
+    def with_streaming(self, d_model: int,
+                       tokens_per_batch: float) -> "TriStreamPlanTerms":
+        """Per-token steady-state extension: two boundary streams priced
+        every decode step (see :class:`TriStreamPlanTerms`)."""
+        return TriStreamPlanTerms.build(self, d_model, tokens_per_batch)
 
 
 def solve_tri_enumeration(tri: TriPlanSpace, bw1: float, bw2: float,
@@ -535,6 +532,150 @@ def solve_tri_enumeration(tri: TriPlanSpace, bw1: float, bw2: float,
     if best_f < 0:
         return None
     return best_f, best_c
+
+
+# ---------------------------------------------------------------------------
+# Token streaming: two per-token boundary streams
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class TriStreamPlanTerms:
+    """Per-token steady-state extension of one :class:`TriPlanSpace` —
+    the three-tier :class:`~repro_torch.core.planner.StreamPlanTerms`. Token
+    streaming pays BOTH wires every decode step:
+
+        Z_stream = Z_prefill(i1,i2,j1,j2,BW1,BW2)
+                 + E[tokens] * (t_dev + t_es + t_cl
+                                + tok(j1)/BW1 + tok(j2)/BW2)
+
+    where the per-token stage times are the batch-unit compute vectors
+    divided by ``tokens_per_batch`` and ``tok(j)`` is the stream-frame
+    wire size of one ``(1, 1, d_model)`` boundary row (codec shape-only
+    size minus the amortized 1-byte bits tag, exactly the two-tier
+    constant). Relay (diagonal) cells stream the SAME frame over both
+    links — which falls out for free since only ``j1 == j2`` diagonal
+    cells are feasible. Energy weighting applies the same ``k`` factors
+    as the one-shot objective, so λ = 0 stays bitwise; at ``BW1 = inf``
+    over the ``degenerate()`` view this reproduces the two-tier
+    ``StreamPlanTerms.decide`` bitwise."""
+
+    tri: TriPlanSpace
+    d_model: int
+    tokens_per_batch: float
+    token_bytes: np.ndarray            # (CK,) stream-frame bytes per token
+
+    @classmethod
+    def build(cls, tri: TriPlanSpace, d_model: int,
+              tokens_per_batch: float) -> "TriStreamPlanTerms":
+        if tokens_per_batch <= 0:
+            raise ValueError("tokens_per_batch must be positive")
+        from repro_torch.codec import get_codec  # lazy: codec imports core
+
+        shape = (1, 1, int(d_model))
+        k = len(tri.codecs)
+        tb = np.empty(tri.n_inner, dtype=np.float64)
+        for j in range(tri.n_inner):
+            ci, ki = divmod(j, k)
+            tb[j] = float(
+                get_codec(tri.codecs[ki]).wire_size_bytes(
+                    shape, tri.bits_choices[ci])) - 1.0
+        return cls(tri=tri, d_model=int(d_model),
+                   tokens_per_batch=float(tokens_per_batch),
+                   token_bytes=_readonly(tb))
+
+    # ------------------------------------------------------------- costs
+    def _steady_extra(self, bw1: float, bw2: float,
+                      expected_tokens: float) -> np.ndarray:
+        """(P, CK²) matrix of E[tokens] * per-token steady-state cost.
+        Op order mirrors the two-tier ``_steady_extra`` with the first
+        link's term added last, so at ``BW1 = inf`` every add is the
+        two-tier add (x + 0.0 preserves bits)."""
+        tri = self.tri
+        ck = tri.n_inner
+        # Per-pair compute term with the energy k factors — identical
+        # operand bits to the one-shot ``base`` construction.
+        comp = (tri.dev_vec * tri.k_dev)[tri.i1_idx] + tri.midcl
+        tok1 = np.broadcast_to(
+            (self.token_bytes * tri.k_tx1)[:, None], (ck, ck)).reshape(-1)
+        tok2 = np.broadcast_to(
+            (self.token_bytes * tri.k_tx2)[None, :], (ck, ck)).reshape(-1)
+        extra = comp[:, None] / self.tokens_per_batch
+        extra = extra + tok2[None, :] / float(bw2)
+        extra = extra + tok1[None, :] / float(bw1)
+        extra = extra * float(expected_tokens)
+        return extra
+
+    def token_time(self, plan: "DecoupledPlan", bw1: float,
+                   bw2: float) -> float:
+        """Raw steady-state seconds per generated token under a concrete
+        plan (no energy weighting — the serving clock charges walltime)."""
+        tri = self.tri
+        if plan.is_cloud_only:
+            return (4.0 / float(bw2) + 4.0 / float(bw1)
+                    + tri.cloud_exec_full() / self.tokens_per_batch)
+        t_dev, t_es, t_cl = tri.stage_times(plan)
+        j1 = tri._j_of(plan.bits, plan.codec)
+        j2 = tri._j_of(plan.bits2, plan.codec2)
+        return float(
+            (t_dev + t_es + t_cl) / self.tokens_per_batch
+            + self.token_bytes[j1] / float(bw1)
+            + self.token_bytes[j2] / float(bw2)
+        )
+
+    def cloud_only_stream_time(self, bw1: float, bw2: float,
+                               expected_tokens: float) -> float:
+        """Z_stream of the no-decoupling fallback: input relayed over
+        both links, everything on the cloud, one 4-byte token id back per
+        step (over both links, energy-weighted like the one-shot)."""
+        tri = self.tri
+        per_tok = (4.0 * tri.k_tx2 / float(bw2)
+                   + 4.0 * tri.k_tx1 / float(bw1)
+                   + tri.cloud_exec_full() * tri.k_cl
+                   / self.tokens_per_batch)
+        return (tri.cloud_only_time(bw1, bw2)
+                + float(expected_tokens) * per_tok)
+
+    def cloud_only_plan(self, bw1: float, bw2: float,
+                        expected_tokens: float,
+                        solve_ms: float = 0.0) -> "DecoupledPlan":
+        return _plan_cls()(
+            -1, 0,
+            self.cloud_only_stream_time(bw1, bw2, expected_tokens),
+            0.0, solve_ms)
+
+    # ----------------------------------------------------------- deciding
+    def decide(self, bw1: float, bw2: float,
+               expected_tokens: float) -> "DecoupledPlan":
+        """One fused ``argmin(base + size1/BW1 + size2/BW2 + E*steady)``
+        over the same precomputed grid as :meth:`TriPlanSpace.decide`."""
+        t0 = time.perf_counter()
+        tri = self.tri
+        cost = tri.size2_eff / float(bw2)
+        cost += tri.size1_eff / float(bw1)
+        cost += tri.base
+        cost += self._steady_extra(bw1, bw2, expected_tokens)
+        f = int(cost.argmin())
+        best = float(cost.flat[f])
+        ms = (time.perf_counter() - t0) * 1e3
+        if best == _INF:
+            return self.cloud_only_plan(bw1, bw2, expected_tokens, ms)
+        return tri._plan_from_flat(f, best, ms)
+
+    # ------------------------------------------------------------ oracles
+    def ilp_problem(self, bw1: float, bw2: float,
+                    expected_tokens: float) -> ILPProblem:
+        """Exact streaming selection problem for the enumeration/B&B
+        oracles — cell costs bitwise-identical to :meth:`decide`."""
+        tri = self.tri
+        cost = tri.size2_eff / float(bw2)
+        cost += tri.size1_eff / float(bw1)
+        cost = cost + tri.base_raw
+        cost = cost + self._steady_extra(bw1, bw2, expected_tokens)
+        return ILPProblem(cost, np.asarray(tri.acc), tri.budget)
+
+    def plan_from_solution(self, sol: ILPSolution) -> "DecoupledPlan":
+        return self.tri.plan_from_solution(sol)
 
 
 # ---------------------------------------------------------------------------
@@ -849,5 +990,5 @@ class TriFleetPlanSpace:
 
 __all__: List[str] = [
     "TriPlanSpace", "TriFleetPlanSpace", "TriFleetDecision",
-    "solve_tri_enumeration",
+    "TriStreamPlanTerms", "solve_tri_enumeration",
 ]

@@ -120,3 +120,40 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0
             (batch, max(seq_len // 4, 8), cfg.d_model)
         ).astype(np.float32) * 0.1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host-sharded loader (data-parallel training feeds per-host shards)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ShardedLoader:
+    """Wraps a stream and yields this host's slice of the global batch.
+
+    In a real multi-host deployment each host loads ``global_batch /
+    num_hosts`` rows; here num_hosts=1 but the interface (and the shard
+    arithmetic) is what the launcher uses. A batch's seed is
+    ``hash((seed, count, host_id)) % 2**31``, the reference's: Python's
+    hash of a tuple of ints is not salted, so both packages draw the same
+    batches.
+    """
+
+    cfg: ModelConfig
+    global_batch: int
+    seq_len: int
+    num_hosts: int = 1
+    host_id: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.global_batch % self.num_hosts:
+            raise ValueError("global batch must divide across hosts")
+        self.host_batch = self.global_batch // self.num_hosts
+        self._count = 0
+
+    def __iter__(self):
+        while True:
+            seed = hash((self.seed, self._count, self.host_id)) % (2 ** 31)
+            self._count += 1
+            yield make_batch(self.cfg, self.host_batch, self.seq_len, seed)

@@ -1,12 +1,12 @@
 """Public model API of the port: ``build_model(cfg)`` returns a
 :class:`Model` with the reference's decoupling surface (``forward``,
 ``decoupling_points``, ``run_head``, ``run_heads``, ``run_segment``,
-``run_tail``, ``per_point_fmacs``, ``boundary_bytes``) for the paper's CNN
-testbed and every decoder family (dense, moe, ssm, hybrid, vlm, audio),
-which also serve (``prefill``, ``decode_step``, ``init_caches``); the
-text families also stream across a cut (``prefill_head`` /
-``prefill_tail``, ``decode_head`` / ``decode_tail``, ``init_head_caches``
-/ ``init_tail_caches``).
+``run_tail``, ``per_point_fmacs``, ``boundary_bytes``) and the training
+loss (``loss_fn``) for the paper's CNN testbed and every decoder family
+(dense, moe, ssm, hybrid, vlm, audio), which also serve (``prefill``,
+``decode_step``, ``init_caches``); the text families also stream across
+a cut (``prefill_head`` / ``prefill_tail``, ``decode_head`` /
+``decode_tail``, ``init_head_caches`` / ``init_tail_caches``).
 
 Parameters are nested dicts (and, for the decoder's segments, lists) of
 tensors keyed like the reference's trees. Batches are dicts: ``"images"``
@@ -91,6 +91,27 @@ class Model:
         return total
 
     # ------------------------------------------------------------ entries
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """The training loss, a float32 scalar: cross-entropy on
+        ``labels`` for a CNN; for a decoder the next-token loss (a vlm's
+        vision prefix skipped) plus ``router_aux_loss`` times the MoE
+        blocks' load-balance loss."""
+        cfg = self.cfg
+        if not self.is_lm:
+            logits = cnn_lib.cnn_forward(self.layers, params, batch["images"])
+            lg = logits.float()
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1,
+                                batch["labels"].long()[:, None])[:, 0]
+            return (logz - gold).mean()
+        logits, aux, _ = tf_lib.forward_seq(params, cfg, batch,
+                                            want_aux=True)
+        offset = 0
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            offset = batch["vision_embeds"].shape[1]
+        return tf_lib.next_token_loss(logits, batch["tokens"], aux, cfg,
+                                      text_offset=offset)
+
     def forward(self, params, batch) -> torch.Tensor:
         if self.is_lm:
             return tf_lib.forward_seq(params, self.cfg, batch)[0]
@@ -170,8 +191,9 @@ class Model:
     def prefill(self, params, batch, cache_len: int):
         """Prompt forward building decode caches: (logits, caches)."""
         self._check_lm()
-        return tf_lib.forward_seq(params, self.cfg, batch,
-                                  cache_len=cache_len)
+        logits, _, caches = tf_lib.forward_seq(params, self.cfg, batch,
+                                               cache_len=cache_len)
+        return logits, caches
 
     def decode_step(self, params, tokens, pos, caches, live=None):
         """One token a row at its own ``pos`` (an int or (B,)); the caches

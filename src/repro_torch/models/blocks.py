@@ -15,7 +15,8 @@ as it is). Block kinds the port runs:
   'c'  decoder-with-cross-attention block              — seamless
 
 Each kind provides ``block_spec`` (ParamSpec tree), ``block_apply_seq``
-(full sequence; returns (x, cache_entry)) and ``block_apply_decode`` (one
+(full sequence; returns (x, aux_loss, cache_entry): the MoE block's
+load-balance loss, None for every other kind) and ``block_apply_decode`` (one
 token a row; returns (x, cache_entry), the entry updated in place: an
 attention block writes each live row's KV at its position, a recurrent
 block overwrites each live row's state and leaves the other rows' as they
@@ -37,7 +38,12 @@ from repro_torch.models.layers.mlp import (
     gelu_mlp_spec,
     swiglu_spec,
 )
-from repro_torch.models.layers.moe import moe_forward, moe_spec
+from repro_torch.models.layers.moe import (
+    Routing,
+    load_balance_loss,
+    moe_forward,
+    moe_spec,
+)
 from repro_torch.models.layers.norms import apply_norm, norm_spec
 
 _ATTN = ("d", "e", "A")     # attention, then SwiGLU ('e': the experts);
@@ -59,6 +65,7 @@ class SeqContext(NamedTuple):
     cache_len: int                            # 0 = don't build decode caches
     positions_3d: Optional[torch.Tensor] = None   # (B, S, 3) M-RoPE ids
     enc_out: Optional[torch.Tensor] = None    # encoder output for 'c'
+    want_aux: bool = False                    # MoE load-balance loss
 
 
 class DecodeContext(NamedTuple):
@@ -175,13 +182,16 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
-                    cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
-    """Returns (x_new, cache_entry_or_None)."""
+                    cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Any]:
+    """Returns (x_new, aux_loss, cache_entry_or_None): ``aux_loss`` is an
+    ``'e'`` block's float32 load-balance loss with ``ctx.want_aux``, None
+    without it and for any other kind (the reference's zero)."""
     _check_kind(kind)
     if kind in _RECURRENT:
         h = apply_norm(cfg.norm_kind, params["ln"], x)
         y, state = _recurrent_seq(kind, params[_RECURRENT[kind]], h, cfg)
-        return x + y, state._asdict() if ctx.cache_len else None
+        return x + y, None, state._asdict() if ctx.cache_len else None
     s = x.shape[1]
     if kind == "E":
         # Bidirectional, no window, no cache; RoPE only if the config has
@@ -191,7 +201,7 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
                                        positions_3d=ctx.positions_3d)
         out = attn_lib.prefill_attention(q, k, v, causal=False)
         x = x + attn_lib.attn_output(params["attn"], out)
-        return x + _mlp(kind, params, x, cfg), None
+        return x + _mlp(kind, params, x, cfg)[0], None, None
     h = apply_norm(_norm_kind(kind, cfg), params["ln1"], x)
     q, k, v = attn_lib.project_qkv(
         params["attn"], h, ctx.positions, cfg,
@@ -202,31 +212,33 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
         hx = apply_norm("layernorm", params["ln_x"], x)
         xk, xv = attn_lib.cross_attention_kv(params["xattn"], ctx.enc_out)
         x = x + attn_lib.cross_attention(params["xattn"], hx, xk, xv)
-    x = x + _mlp(kind, params, x, cfg)
+    y, routing = _mlp(kind, params, x, cfg)
+    x = x + y
+    aux = (load_balance_loss(routing)
+           if ctx.want_aux and routing is not None else None)
     cache = None
     if ctx.cache_len:
         cache = _build_kv_cache(k, v, s, ctx.cache_len, cfg)
         if kind == "c":
             cache.update(xk=xk, xv=xv)
-    return x, cache
+    return x, aux, cache
 
 
 def _norm_kind(kind: str, cfg: ModelConfig) -> str:
     return "layernorm" if kind in _ENCDEC else cfg.norm_kind
 
 
-def _mlp(kind: str, params, x: torch.Tensor,
-         cfg: ModelConfig) -> torch.Tensor:
+def _mlp(kind: str, params, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[Routing]]:
     """``ln2``, then the feed-forward of an attention block: the experts of
-    an ``'e'`` block (without the load-balance loss: nothing here
-    trains), the GELU MLP of an ``'E'`` / ``'c'`` block, SwiGLU
-    otherwise."""
+    an ``'e'`` block and their routing, the GELU MLP of an ``'E'`` /
+    ``'c'`` block, SwiGLU otherwise (no routing: None)."""
     h2 = apply_norm(_norm_kind(kind, cfg), params["ln2"], x)
     if kind == "e":
-        return moe_forward(params["mlp"], h2, cfg)[0]
+        return moe_forward(params["mlp"], h2, cfg)
     if kind in _ENCDEC:
-        return apply_gelu_mlp(params["mlp"], h2)
-    return apply_swiglu(params["mlp"], h2)
+        return apply_gelu_mlp(params["mlp"], h2), None
+    return apply_swiglu(params["mlp"], h2), None
 
 
 def _build_kv_cache(k, v, s, cache_len, cfg: ModelConfig):
@@ -289,7 +301,7 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
         hx = apply_norm("layernorm", params["ln_x"], x)
         x = x + attn_lib.cross_attention(params["xattn"], hx, cache["xk"],
                                          cache["xv"])
-    return x + _mlp(kind, params, x, cfg), cache
+    return x + _mlp(kind, params, x, cfg)[0], cache
 
 
 def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,

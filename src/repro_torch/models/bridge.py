@@ -4,7 +4,8 @@ layouts: OIHW conv weights, ``(fin, fout)`` FC weights; for a decoder the
 ``segments`` list of per-segment trees stacked along a leading layer
 axis), so both packages compute the same function from the same
 weights. A bfloat16 leaf arrives as numpy's ``ml_dtypes`` bfloat16 and is
-carried over by its bits."""
+carried over by its bits. The reference's AdamW state crosses the same
+way (:func:`opt_state_from_numpy`)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -32,6 +33,19 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None
         return torch.from_numpy(arr).to(dev)
 
     return walk(tree)
+
+
+def opt_state_from_numpy(state, device: DeviceLike = None):
+    """The reference's ``AdamWState(step, mu, nu)``, fetched to the host
+    (numpy leaves), as the port's: an int32 step tensor and float32
+    moment trees on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step, params_from_numpy(state.mu, dev),
+                      params_from_numpy(state.nu, dev))
 
 
 def params_to(tree: Dict[str, Any], device: DeviceLike) -> Dict[str, Any]:

@@ -122,8 +122,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = _split_gqa(q, kvh)                                  # (B,Sq,kv,g,K)
-    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k).float()
-    scores *= hd ** -0.5
+    # Out of place: the product's output must stay as it is for a
+    # selective checkpoint that keeps it (``remat="dots"``).
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k).float() * hd ** -0.5
     mask = _mask(sq, k.shape[1], q_offset, causal, window, q.device)
     scores = torch.where(mask[None, None, None], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)

@@ -186,7 +186,8 @@ def apply_moe(params, x: torch.Tensor, cfg: ModelConfig,
               group_size: int = DEFAULT_GROUP
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's signature: (output (B, S, d), the Switch
-    load-balance loss). The model's blocks call :func:`moe_forward`, which
-    skips the loss they would discard."""
+    load-balance loss). The model's blocks call :func:`moe_forward` and
+    take the loss from its routing over a sequence only: a decode step
+    would discard it."""
     y, r = moe_forward(params, x, cfg, capacity_factor, group_size)
     return y, load_balance_loss(r)

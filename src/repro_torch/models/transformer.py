@@ -1,8 +1,10 @@
 """Architecture assembly for every decoder family (dense, moe, ssm,
 hybrid, vlm, audio): segment plan, parameter specs, the full-sequence
-forward (prefill), single-token decode, the one-shot head/tail split of a
-forward and the token-level head/tail split that runs the JALAD cut inside
-the decode loop.
+forward (prefill, and training with the MoE blocks' load-balance loss and
+the next-token loss; ``cfg.block_remat`` checkpoints each block),
+single-token decode, the one-shot head/tail split of a forward and the
+token-level head/tail split that runs the JALAD cut inside the decode
+loop.
 
 A text family's positions are ``arange`` over the sequence, so a boundary
 carries everything the tail needs. The vlm family prepends projected
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.types import ModelConfig
 from repro_torch.models import blocks as blk
@@ -139,19 +142,24 @@ def effective_window(cfg: ModelConfig, seq_len: int) -> int:
     return cfg.attention_window
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+def _unstack(tree, count: int) -> List[Any]:
+    """The ``count`` layers of a stacked tree (a parameterless norm's
+    ``{}`` included), from one ``unbind`` a leaf: views, no copies, and a
+    backward through them stacks the layers' gradients once, where a
+    slice a layer would scatter each into a zero tensor of the whole
+    stack."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        cols = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(count)]
+    return list(tree.unbind(0))
 
 
-def _block(params, seg: Segment, sj: int, li: int):
-    """The parameters of layer ``li`` of segment ``sj``: a slice of the
-    segment's stacked tree, or the one shared attention block."""
+def _seg_layers(params, seg: Segment, sj: int) -> List[Any]:
+    """The parameters of each layer of segment ``sj``: views of its
+    stacked tree, or the one shared attention block."""
     if seg.shared:
-        return params["shared_attn"]
-    return _layer(params["segments"][sj], li)
+        return [params["shared_attn"]] * seg.count
+    return _unstack(params["segments"][sj], seg.count)
 
 
 def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -208,15 +216,25 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _apply_block(kind: str, params, x: torch.Tensor, ctx: blk.SeqContext,
+                 cfg: ModelConfig):
+    """One block over a sequence: ``block_apply_seq``, under activation
+    checkpointing when ``cfg.block_remat`` (only the block's input is kept
+    for the backward; its inside is recomputed)."""
+    if cfg.block_remat:
+        return checkpoint(blk.block_apply_seq, kind, params, x, ctx, cfg,
+                          use_reentrant=False)
+    return blk.block_apply_seq(kind, params, x, ctx, cfg)
+
+
 def run_encoder(params, cfg: ModelConfig, src: torch.Tensor) -> torch.Tensor:
     """Seamless-style encoder over precomputed (stub) frame embeddings."""
     x = src.to(torch_dtype(cfg.dtype))
     b, s, _ = x.shape
     ctx = blk.SeqContext(_positions(b, s, x.device), 0, 0)
     enc = params["encoder"]
-    for li in range(cfg.num_encoder_layers):
-        x, _ = blk.block_apply_seq("E", _layer(enc["segments"][0], li), x,
-                                   ctx, cfg)
+    for layer in _unstack(enc["segments"][0], cfg.num_encoder_layers):
+        x = _apply_block("E", layer, x, ctx, cfg)[0]
     return apply_norm("layernorm", enc["final_norm"], x)
 
 
@@ -238,10 +256,10 @@ def _seq_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def _seq_ctx(cfg: ModelConfig, s: int, extras: Dict[str, Any],
-             cache_len: int = 0) -> blk.SeqContext:
+             cache_len: int = 0, want_aux: bool = False) -> blk.SeqContext:
     return blk.SeqContext(extras["positions"], effective_window(cfg, s),
                           cache_len, extras.get("pos3d"),
-                          extras.get("enc_out"))
+                          extras.get("enc_out"), want_aux)
 
 
 def _boundary_ctx(cfg: ModelConfig, boundary: torch.Tensor,
@@ -279,20 +297,26 @@ def _pos_rows(pos, b: int, device) -> torch.Tensor:
 
 
 def _run_seq(params, cfg: ModelConfig, x: torch.Tensor, ctx: blk.SeqContext,
-             ranges: List[Tuple[int, int, int]]) -> Tuple[torch.Tensor, List]:
-    """Blocks of ``(segment, lo, hi)`` ranges over a sequence; the caches
-    of each range stacked along the layer axis (None without cache_len)."""
+             ranges: List[Tuple[int, int, int]]
+             ) -> Tuple[torch.Tensor, List, Optional[torch.Tensor]]:
+    """Blocks of ``(segment, lo, hi)`` ranges over a sequence: the output,
+    the caches of each range stacked along the layer axis (None without
+    cache_len), and with ``ctx.want_aux`` the float32 sum of the MoE
+    blocks' load-balance losses, added block by block in order (the
+    reference's scan carry); None without it, and nothing computed."""
     plan = segment_plan(cfg)
     caches: List[Any] = []
+    aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                 if ctx.want_aux else None)
     for sj, lo, hi in ranges:
         entries = []
-        for li in range(lo, hi):
-            x, c = blk.block_apply_seq(plan[sj].kind,
-                                       _block(params, plan[sj], sj, li),
-                                       x, ctx, cfg)
+        for layer in _seg_layers(params, plan[sj], sj)[lo:hi]:
+            x, aux, c = _apply_block(plan[sj].kind, layer, x, ctx, cfg)
+            if aux is not None:
+                aux_total = aux_total + aux
             entries.append(c)
         caches.append(_stack(entries) if ctx.cache_len else None)
-    return x, caches
+    return x, caches, aux_total
 
 
 def _run_decode(params, cfg: ModelConfig, x: torch.Tensor,
@@ -302,10 +326,10 @@ def _run_decode(params, cfg: ModelConfig, x: torch.Tensor,
     range's stacked cache is updated in place."""
     plan = segment_plan(cfg)
     for (sj, lo, hi), cache in zip(ranges, caches):
-        for j, li in enumerate(range(lo, hi)):
-            x, _ = blk.block_apply_decode(plan[sj].kind,
-                                          _block(params, plan[sj], sj, li),
-                                          x, _layer(cache, j), ctx, cfg)
+        layers = _seg_layers(params, plan[sj], sj)[lo:hi]
+        for layer, entry in zip(layers, _unstack(cache, hi - lo)):
+            x, _ = blk.block_apply_decode(plan[sj].kind, layer, x, entry,
+                                          ctx, cfg)
     return x
 
 
@@ -319,14 +343,17 @@ def _all_ranges(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
 
 
 def forward_seq(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-                cache_len: int = 0
-                ) -> Tuple[torch.Tensor, Optional[List[Any]]]:
-    """Returns (logits, caches). ``cache_len`` > 0 builds decode caches
-    (prefill mode)."""
+                cache_len: int = 0, want_aux: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[List[Any]]]:
+    """Returns (logits, aux, caches). ``cache_len`` > 0 builds decode
+    caches (prefill mode); ``want_aux`` (training) gives ``aux``, the
+    float32 sum of the MoE blocks' load-balance losses (zero for a model
+    without ``'e'`` blocks), None without it."""
     x, extras = _seq_inputs(params, cfg, batch)
-    ctx = _seq_ctx(cfg, x.shape[1], extras, cache_len)
-    x, caches = _run_seq(params, cfg, x, ctx, _all_ranges(cfg))
-    return _logits(params, cfg, x), (caches if cache_len else None)
+    ctx = _seq_ctx(cfg, x.shape[1], extras, cache_len, want_aux)
+    x, caches, aux = _run_seq(params, cfg, x, ctx, _all_ranges(cfg))
+    return _logits(params, cfg, x), aux, (caches if cache_len else None)
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +489,7 @@ def prefill_head(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     check_streamable(cfg)
     x, extras = _seq_inputs(params, cfg, batch)
     ctx = _seq_ctx(cfg, x.shape[1], extras, cache_len)
-    return _run_seq(params, cfg, x, ctx, _head_ranges(cfg, point))
+    return _run_seq(params, cfg, x, ctx, _head_ranges(cfg, point))[:2]
 
 
 def prefill_tail(params, cfg: ModelConfig, boundary: torch.Tensor,
@@ -473,7 +500,8 @@ def prefill_tail(params, cfg: ModelConfig, boundary: torch.Tensor,
     boundary's shape. Returns (logits (B, S, V), tail_caches)."""
     check_streamable(cfg)
     ctx = _boundary_ctx(cfg, boundary, None, cache_len)
-    x, caches = _run_seq(params, cfg, boundary, ctx, _tail_ranges(cfg, point))
+    x, caches, _ = _run_seq(params, cfg, boundary, ctx,
+                            _tail_ranges(cfg, point))
     return _logits(params, cfg, x), caches
 
 
@@ -527,7 +555,7 @@ def run_tail(params, cfg: ModelConfig, boundary: torch.Tensor, point: int,
              extras: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Blocks (point, end) and the logits, from a whole-sequence boundary."""
     ctx = _boundary_ctx(cfg, boundary, extras)
-    x, _ = _run_seq(params, cfg, boundary, ctx, _tail_ranges(cfg, point))
+    x = _run_seq(params, cfg, boundary, ctx, _tail_ranges(cfg, point))[0]
     return _logits(params, cfg, x)
 
 
@@ -555,11 +583,28 @@ def run_heads(params, cfg: ModelConfig, batch, points
     taps: Dict[int, torch.Tensor] = {}
     point = 0
     for sj, lo, hi in _head_ranges(cfg, max(want)):
-        for li in range(lo, hi):
-            x, _ = blk.block_apply_seq(plan[sj].kind,
-                                       _block(params, plan[sj], sj, li),
-                                       x, ctx, cfg)
+        for layer in _seg_layers(params, plan[sj], sj)[lo:hi]:
+            x = blk.block_apply_seq(plan[sj].kind, layer, x, ctx, cfg)[0]
             if point in want:
                 taps[point] = x
             point += 1
     return taps, extras
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    aux: torch.Tensor, cfg: ModelConfig,
+                    text_offset: int = 0) -> torch.Tensor:
+    """Causal LM loss in float32; ``text_offset`` skips modality-prefix
+    positions (a vlm's vision tokens)."""
+    lg = logits[:, text_offset:, :]
+    pred = lg[:, :-1].float()
+    tgt = tokens[:, 1:].long()
+    logz = torch.logsumexp(pred, dim=-1)
+    gold = torch.gather(pred, -1, tgt[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll + cfg.router_aux_loss * aux

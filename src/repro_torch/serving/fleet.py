@@ -37,9 +37,8 @@ decision plane held in stacked arrays:
 
 Trace-shaped request streams (diurnal load, bandwidth walks, flash
 crowds) for driving this server live in :mod:`repro_torch.serving.
-workloads`. The meshed cloud worker (``cloud_mesh``) and the
-token-streaming hooks are not ported yet: they raise
-``NotImplementedError``.
+workloads`. The meshed cloud worker (``cloud_mesh``) is not ported yet:
+it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,10 +64,6 @@ PlanKey = Tuple[int, int, str]            # (point, bits, codec)
 _MESH_NOT_PORTED = (
     "FleetServer(cloud_mesh=...): the meshed cloud "
     "(serving/meshed.py, MeshedCloudWorker) is not ported yet")
-_STREAMS_NOT_PORTED = (
-    "FleetServer token streaming (attach_stream / step_streams / "
-    "run_streams, the fleet's hooks into serving/streaming.py) is not "
-    "ported yet")
 
 
 class FleetDevice:
@@ -198,6 +193,10 @@ class FleetServer:
     devices: List[FleetDevice] = field(default_factory=list)
     completed: List[FleetRequest] = field(default_factory=list)
     cloud_groups: List[CloudGroup] = field(default_factory=list)
+    # Attached token-streaming sessions (repro_torch.serving.streaming):
+    # their per-step boundary rows merge into the (point, bits, codec)
+    # cloud groups alongside the one-shot batches (see step_streams).
+    stream_sessions: List[Any] = field(default_factory=list)
     fleet_space: Optional[FleetPlanSpace] = None
     controller: Optional[FleetAdaptationController] = None
     _cloud_free: float = 0.0
@@ -409,13 +408,52 @@ class FleetServer:
 
     # ------------------------------------------------------ token streaming
     def attach_stream(self, session: Any) -> None:
-        raise NotImplementedError(_STREAMS_NOT_PORTED)
+        """Register a :class:`~repro_torch.serving.streaming.
+        TokenStreamSession` whose per-step wire work should batch with
+        other attached sessions that agreed on the same (point, bits,
+        codec) plan."""
+        if getattr(session, "plan", None) is None:
+            raise ValueError("attach_stream needs a TokenStreamSession "
+                             "carrying a DecoupledPlan")
+        self.stream_sessions.append(session)
 
     def step_streams(self) -> int:
-        raise NotImplementedError(_STREAMS_NOT_PORTED)
+        """Advance every attached streaming session one engine step.
+        Sessions are bucketed by plan key and each bucket runs ONE
+        cross-session batched boundary encode/decode
+        (:func:`~repro_torch.serving.streaming.step_stream_group`) —
+        streaming slots join the fleet's cloud groups exactly like
+        one-shot requests, and each group is logged in ``cloud_groups``.
+        Returns the number of tokens generated this step."""
+        from repro_torch.serving.streaming import step_stream_group
+
+        live = [s for s in self.stream_sessions if s.queue or s.num_active]
+        buckets: Dict[PlanKey, List[Any]] = {}
+        order: List[PlanKey] = []
+        for s in live:
+            key = s.plan_key
+            if key not in buckets:
+                buckets[key] = []
+                order.append(key)
+            buckets[key].append(s)
+        tokens = 0
+        for key in order:
+            before = sum(s.tokens_out for s in buckets[key])
+            pairs = step_stream_group(buckets[key])
+            uids = [u for _, us in pairs for u in us]
+            if uids:
+                self.cloud_groups.append(CloudGroup(key, uids))
+            tokens += sum(s.tokens_out for s in buckets[key]) - before
+        return tokens
 
     def run_streams(self) -> int:
-        raise NotImplementedError(_STREAMS_NOT_PORTED)
+        """Drain every attached streaming session; returns total tokens
+        generated. (Arrival-deferred requests admit as the sessions'
+        step counters advance, so the loop always terminates.)"""
+        total = 0
+        while any(s.queue or s.num_active for s in self.stream_sessions):
+            total += self.step_streams()
+        return total
 
     # ----------------------------------------------------------- reporting
     @property

@@ -1,0 +1,17 @@
+from repro_torch.utils.tree import (
+    tree_size_bytes,
+    tree_param_count,
+    tree_map_with_path_names,
+    check_no_nans,
+    cast_floating,
+)
+from repro_torch.utils.log import get_logger
+
+__all__ = [
+    "tree_size_bytes",
+    "tree_param_count",
+    "tree_map_with_path_names",
+    "check_no_nans",
+    "cast_floating",
+    "get_logger",
+]

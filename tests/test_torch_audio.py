@@ -122,7 +122,7 @@ def _layer0(jp, p, *path):
     jt, pt = jp, p
     for k in path:
         jt, pt = jt[k], pt[k]
-    return jax.tree.map(lambda a: a[0], jt), tf._layer(pt, 0)
+    return jax.tree.map(lambda a: a[0], jt), tf._unstack(pt, 1)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -166,10 +166,10 @@ def test_encoder_block_matches_reference():
     ref, _, jc = jblk.block_apply_seq(
         "E", jl, jnp.asarray(x), jblk.SeqContext(jnp.asarray(pos), None, 0,
                                                  CACHE_LEN), jm.cfg)
-    out, tc = blk.block_apply_seq(
+    out, aux, tc = blk.block_apply_seq(
         "E", pl, torch.from_numpy(x),
         blk.SeqContext(torch.from_numpy(pos.copy()), 0, CACHE_LEN), m.cfg)
-    assert jc is None and tc is None
+    assert jc is None and tc is None and aux is None
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=ATOL)
     assert blk.init_block_cache("E", m.cfg, 2, CACHE_LEN,
@@ -195,12 +195,13 @@ def test_cross_block_sequence_and_decode(kv_bits):
         "c", jl, jnp.asarray(x),
         jblk.SeqContext(jnp.asarray(pos), None, 0, CACHE_LEN,
                         jnp.asarray(enc)), jm.cfg)
-    out, tc = blk.block_apply_seq(
+    out, aux, tc = blk.block_apply_seq(
         "c", pl, torch.from_numpy(x),
         blk.SeqContext(torch.from_numpy(pos.copy()), 0, CACHE_LEN,
                        enc_out=torch.from_numpy(enc)), m.cfg)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=ATOL)
+    assert aux is None
     assert sorted(tc) == sorted(jc)
     zero = blk.init_block_cache("c", m.cfg, 2, CACHE_LEN, torch.float32,
                                 enc_len=9)

@@ -271,11 +271,13 @@ def test_empty_stream_and_bad_inputs(shared):
     with pytest.raises(NotImplementedError, match="the meshed cloud"):
         build_fleet_server(get_config("resnet50").reduced(), JaladConfig(),
                            _profiles(ttypes), cloud_mesh=object())
-    for call in (lambda: solo.attach_stream(object()), solo.step_streams,
-                 solo.run_streams):
-        with pytest.raises(NotImplementedError,
-                           match="token streaming .* is not ported"):
-            call()
+    # The token-streaming hooks are ported: a fleet with no attached
+    # session steps nothing, and a session needs a plan.
+    with pytest.raises(ValueError, match="DecoupledPlan"):
+        solo.attach_stream(object())
+    assert solo.step_streams() == 0
+    assert solo.run_streams() == 0
+    assert solo.stream_sessions == [] and solo.cloud_groups == []
 
 
 def test_single_device_fleet_is_one_synchronous_server(shared):

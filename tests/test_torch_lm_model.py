@@ -220,9 +220,11 @@ def test_batched_rows_at_own_positions_equal_batch_one():
 def test_unported_families_raise():
     """Every family of the reference builds now, vlm and audio included,
     with every block kind; what the port still leaves out raises and
-    names its module: the meshed cloud (``serving/meshed.py``), the
-    fleet's token streams (``serving/streaming.py``) and the three-tier
-    streaming terms (``TriStreamPlanTerms``)."""
+    names its module: the meshed cloud (``serving/meshed.py``). The
+    fleet's token streams and the three-tier streaming terms are ported
+    and no longer raise."""
+    import types
+
     from repro_torch.config import JaladConfig, ModelConfig
     from repro_torch.core.tri_planner import TriPlanSpace
     from repro_torch.models import blocks
@@ -247,10 +249,13 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match=r"serving/meshed\.py"):
         fleet.build_fleet_server(get_config("resnet50").reduced(),
                                  JaladConfig(), [], cloud_mesh=object())
-    for name in ("attach_stream", "step_streams", "run_streams"):
-        with pytest.raises(NotImplementedError,
-                           match=r"serving/streaming\.py"):
-            getattr(fleet.FleetServer, name)(*[None] * (
-                2 if name == "attach_stream" else 1))
-    with pytest.raises(NotImplementedError, match="TriStreamPlanTerms"):
-        TriPlanSpace.with_streaming(None, 64, 16.0)
+    with pytest.raises(NotImplementedError, match=r"serving/meshed\.py"):
+        fleet.FleetServer(None, None, [object()], cloud_mesh=object())
+    # The streaming hooks run: an empty fleet has no stream to step.
+    idle = types.SimpleNamespace(stream_sessions=[], cloud_groups=[])
+    assert fleet.FleetServer.step_streams(idle) == 0
+    assert fleet.FleetServer.run_streams(idle) == 0
+    with pytest.raises(ValueError, match="DecoupledPlan"):
+        fleet.FleetServer.attach_stream(idle, object())
+    with pytest.raises(ValueError, match="tokens_per_batch"):
+        TriPlanSpace.with_streaming(None, 64, 0.0)

@@ -40,6 +40,10 @@ CORE_MODULES = ("repro_torch.core.compression",
 # The vlm and audio families' configs.
 MM_MODULES = ("repro_torch.configs.qwen2_vl_7b",
               "repro_torch.configs.seamless_m4t_large_v2")
+# Training and checkpoints.
+TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.training.loop",
+                 "repro_torch.checkpoint.store", "repro_torch.launch.train",
+                 "repro_torch.utils.log", "repro_torch.utils.tree")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -59,10 +63,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True,
                          timeout=300).stdout.split(" ")
-    assert int(out[0]) >= 64          # every module of the port was imported
+    assert int(out[0]) >= 79          # every module of the port was imported
     assert out[1].strip() == "[]"
-    assert set(LM_MODULES + SSM_MODULES + CORE_MODULES + MM_MODULES) <= set(
-        out[2].strip().split(","))
+    assert set(LM_MODULES + SSM_MODULES + CORE_MODULES + MM_MODULES
+               + TRAIN_MODULES) <= set(out[2].strip().split(","))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -76,6 +80,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.serving.fleet import build_fleet_server
     from repro_torch.serving.three_tier import build_three_tier_server
     from repro_torch.launch.serve import main
+    from repro_torch.launch.train import main as train_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("resnet50").reduced()
@@ -99,6 +104,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
                                         calib_batches=1, calib_batch_size=1,
                                         seq_len=4),
         lambda: main(["--arch", "olmo-1b", "--reduced", "--continuous"]),
+        lambda: train_main(["--arch", "olmo-1b", "--reduced"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()

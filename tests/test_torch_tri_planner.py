@@ -244,10 +244,28 @@ def test_relay_cells_carry_a_single_boundary(seed):
         assert tt.mid_vec[q] == 0.0
 
 
-def test_with_streaming_waits_for_the_lm_stack():
-    _, tt = both_tri(0)
-    with pytest.raises(NotImplementedError):
-        tt.with_streaming(64, 16.0)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_with_streaming_waits_for_the_lm_stack(seed):
+    """``with_streaming`` is ported: on the same tables (registered codecs
+    on the codec axis) both packages' streaming terms price the same
+    frames and decide the same plans, bitwise
+    (``tests/test_torch_tri_stream.py`` holds the rest)."""
+    from repro_torch.codec import list_codecs
+
+    spaces = []
+    for pkg in (JPKG, TPKG):
+        tables, lat, budget, es, power, lam = random_setup(pkg, seed)
+        tables.codecs = list(list_codecs())[: len(tables.codecs)]
+        spaces.append(pkg[4].TriPlanSpace.build(
+            tables, lat, budget, edge_server=es, power=power,
+            energy_weight=lam))
+    jterms, tterms = (sp.with_streaming(64, 16.0) for sp in spaces)
+    assert isinstance(tterms, ttri.TriStreamPlanTerms)
+    assert np.array_equal(tterms.token_bytes, jterms.token_bytes)
+    bw1, bw2 = random_bandwidths(seed)
+    for e_tok in (1.0, 64.0):
+        assert plan_key(tterms.decide(bw1, bw2, e_tok)) == \
+            plan_key(jterms.decide(bw1, bw2, e_tok))
 
 
 # ---------------------------------------------------------------------------
