@@ -138,10 +138,11 @@ NVIDIA card.
    one launch) plus one of each a join, and each session's tokens equal to
    the same session run alone. Then reduced olmo-1b in float32, card
    against CPU: logits within ``LM_SMALL_RTOL``, equal greedy tokens.
-9. Serves the recurrent families at full width and depth, bfloat16,
-   random weights from seed 0: zamba2-2.7b (54 Mamba2 blocks, one shared
-   attention block after every 6) and xlstm-1.3b (42 mLSTM, 6 sLSTM
-   blocks), each through the phases of step 8: (a) ``ServeSession``
+9. Serves the recurrent families at full width and cut depth, bfloat16,
+   random weights from seed 0: zamba2-2.7b at 24 of its 54 Mamba2 blocks
+   (one shared attention block after every 6) and xlstm-1.3b at its first
+   24 of 48 blocks (21 mLSTM, 3 sLSTM), each through the phases of step
+   8: (a) ``ServeSession``
    (batch 4, prompt 32, 16 tokens; prefill and decode-step times), split
    equal to unsplit bit for bit at the points of ``RNN_ARCHS`` (zamba2:
    either side of an ``A`` too), and for zamba2 one 512-token prefill,
@@ -215,7 +216,26 @@ NVIDIA card.
    ``train_serve`` path, the counters set to 0 just before and read just
    after) equal to the trained weights' in memory; (e) one more train
    step under ``torch.profiler``: device kernels, device time, busy share.
-13. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+13. The meshed cloud on the card as a mesh of one (``make_host_mesh``:
+   ("data", "model") = (1, 1) over an ``nccl`` group of one): (a) the
+   sharded bitpack and Huffman-codes decodes of step 3's ``stem_pool``
+   boundary, one blob a sample, at 2, 4, 8 and 16 bits, byte-equal to
+   each blob's own decode, one K2 launch a call (times beside the plain
+   batched decode); (b) full-width ResNet-50 through
+   ``FleetServer(cloud_mesh=...)`` on step 6's trace (the three codecs'
+   tables, then bitpack and per-channel pinned) against the
+   single-device fused tail (``fuse_cloud_tail=True``): plans and
+   breakdowns equal, logits within ``FUSED_TAIL_RTOL`` of their scale, one
+   K2 launch a bitpack or Huffman group and one K5 a per-channel group;
+   (c) full-width granite-34b at ``MESH_LM_LAYERS`` of its 88 layers
+   (weights drawn on the card), the same way at the pinned cut
+   ``MESH_LM_POINT``, printing the logits' max |diff|, then both fleets
+   served again to time them warm. For each worker,
+   ``torch.cuda.memory_allocated`` before and after building it must grow
+   by less than ``MESH_GROWTH_SHARE`` of the parameter bytes (the shards
+   are views of the parameters). The counters are set to 0 just before
+   each meshed serve and read just after (the ``meshed`` path).
+14. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -332,24 +352,34 @@ LM_SMALL_RTOL = 1e-5
 
 # Recurrent LM serving (step 9): full-width zamba2-2.7b (Mamba2 + the one
 # shared attention block every 6) and xlstm-1.3b (mLSTM + sLSTM), bfloat16,
-# full depth, random weights from seed 0, through the same phases as step
-# 8 (LM_SESSION, LM_REQUESTS on LM_MAX_BATCH slots, LM_STREAM_BITS). Each
-# arch's stream cut and its split points: zamba2's middle point (31 of 63,
-# counting each A as a point; between the A invocations at 27 and 34), the
-# first, the points right before (5) and after (6) the first A, and the
-# last; xlstm after block 24 of 48 (point 23, an sLSTM block).
-RNN_ARCHS = {"zamba2-2.7b": dict(point=31, split=(0, 5, 6, 31, 62)),
-             "xlstm-1.3b": dict(point=23, split=(0, 23, 47))}
+# random weights from seed 0, through the same phases as step 8
+# (LM_SESSION, LM_REQUESTS on LM_MAX_BATCH slots, LM_STREAM_BITS), each cut
+# to 24 blocks (a prefix of its published pattern): the step is host-bound
+# (3,700-4,500 kernels a decode step at full depth), and at full depth it
+# took 340-495 s of the script's 1,200 on an H100 80GB HBM3 at 700 W (step
+# 13 took the rest of the room). Each arch's stream cut and its split
+# points: zamba2's middle point (16 of 28,
+# counting each A as a point; between the A invocations at 13 and 20), the
+# first, the points right before (5) and at (6) the first A, and the last;
+# xlstm after block 16 of 24 (point 15, an sLSTM block).
+RNN_ARCHS = {"zamba2-2.7b": dict(point=16, split=(0, 5, 6, 16, 27),
+                                 cut=dict(num_layers=24,
+                                          block_pattern="m" * 24)),
+             "xlstm-1.3b": dict(point=15, split=(0, 15, 23),
+                                cut=dict(num_layers=24,
+                                         block_pattern="lllllllslllllll"
+                                                       "sllllllls"))}
 # zamba2: one 512-token prefill at batch 1 takes the chunked SSD; its
 # next-token logits against the sequential scan (a 511-token prefill, then
 # one decode step), as a share of the logits' scale. The SSD runs in float32
 # either way, but its output is rounded to bfloat16 before each out_proj,
 # and an element the two sum orders leave either side of a bfloat16
-# rounding edge moves by 2^-8 of itself, through 54 blocks.
+# rounding edge moves by 2^-8 of itself, through every block.
 RNN_CHUNK_PROMPT, RNN_CHUNK_RTOL = 512, 5e-2
-# A full-width zamba2 tail holds 27 Mamba2 states (float32, 1.3 MiB a row
-# a block) beside 4-5 attention KV caches: int8 KV leaves the tail at 0.94
-# of its bfloat16 bytes, which the session's bytes-halved check (the
+# A full-width zamba2 tail holds float32 Mamba2 states (1.3 MiB a row a
+# block; 9 past the stream's cut) beside its attention KV caches (2): int8
+# KV leaves the tail near 0.9 of its bfloat16 bytes (0.94 at full depth's
+# 27 states and 4-5 caches), which the session's bytes-halved check (the
 # reference's rule: whole tail tree, recurrent state included) refuses. So
 # its streams keep the tail KV in bfloat16; xlstm's tail has no KV at all.
 RNN_CLOUD_KV_BITS = {"zamba2-2.7b": 0, "xlstm-1.3b": 8}
@@ -441,6 +471,23 @@ TRAIN_SMALL_LRS = 2.5
 # The profiled train step lists the PROFILE_TOP operators whose kernels
 # took the most device time.
 PROFILE_TOP = 8
+
+# Meshed cloud (step 13): the bit widths of the sharded decodes (a); the
+# granite-34b depth one 80 GB card holds with room to serve (36 of 88
+# layers, 39.4 GB of bfloat16 weights), its pinned cut (after block 9: 26
+# blocks and the logits in the meshed tail), its prompts and requests (2
+# waves of the 4 MESH_LM_EDGES); the edges are faster than the cloud
+# profile, since a token prompt costs the link next to nothing and a
+# slower edge would leave every request on the cloud. A worker's shards
+# are views of the parameters: building one may allocate at most this
+# share of their bytes.
+MESH_DECODE_BITS = (2, 4, 8, 16)
+MESH_LM_ARCH = "granite-34b"
+MESH_LM_LAYERS = 36
+MESH_LM_POINT = 8
+MESH_LM_SEQ = 32
+MESH_LM_WAVES = 2
+MESH_GROWTH_SHARE = 0.01
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -2656,8 +2703,8 @@ def compress_state_errors(torch, caches, bits: int) -> dict:
 
 
 def serve_recurrent_lm(torch, results):
-    """Step 9: full-width zamba2-2.7b and xlstm-1.3b (bfloat16, full depth,
-    random weights from seed 0) through the phases of step 8, with
+    """Step 9: full-width zamba2-2.7b and xlstm-1.3b (bfloat16, 24 blocks
+    each, random weights from seed 0) through the phases of step 8, with
     zamba2's chunked SSD against the sequential scan and compress_state on
     the prefill's caches."""
     from repro_torch.config import ServeConfig
@@ -2667,7 +2714,7 @@ def serve_recurrent_lm(torch, results):
     counts = dict.fromkeys(qops.launch_counts(), 0)
     out_all = {}
     for arch, spec in RNN_ARCHS.items():
-        model, params, init_s = load_lm(torch, arch)
+        model, params, init_s = load_lm(torch, arch, **spec["cut"])
         cfg, names, point = model.cfg, model.decoupling_points(), spec["point"]
         print(f"RNN: {arch} ({model.param_count():,} parameters, "
               f"{len(names)} points, pattern {cfg.block_pattern[:8]}..., "
@@ -3340,6 +3387,289 @@ def serve_train(torch, results):
     return counts
 
 
+def _mesh_edges():
+    from repro_torch.config.types import DeviceProfile
+
+    return [DeviceProfile("edge-gpu-a", 400e12, 1.0),
+            DeviceProfile("edge-gpu-b", 200e12, 1.1),
+            DeviceProfile("edge-gpu-c", 400e12, 1.2),
+            DeviceProfile("edge-gpu-d", 100e12, 1.0)]
+
+
+def mesh_worker_growth(torch, make, params) -> tuple:
+    """``make()`` (a meshed FleetServer) and the bytes the card allocated
+    while it ran, against the parameters' bytes; fails unless the growth
+    is below MESH_GROWTH_SHARE of them."""
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fleet = make()
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    check(grew < MESH_GROWTH_SHARE * nbytes,
+          f"building the mesh worker allocated {grew} B for "
+          f"{nbytes} B of parameters")
+    return fleet, grew, nbytes
+
+
+def compare_meshed(torch, done, fused, what: str) -> float:
+    """The meshed fleet's requests against the fused single-device run:
+    plans, timelines and breakdowns equal, logits finite and within
+    FUSED_TAIL_RTOL of their scale. Returns the worst max |diff|."""
+    worst = 0.0
+    check([r.uid for r in done] == [r.uid for r in fused], f"{what}: order")
+    for r, rf in zip(done, fused):
+        check(_plan(r.plan) == _plan(rf.plan) and r.timeline == rf.timeline
+              and r.breakdown == rf.breakdown,
+              f"{what} request {r.uid}: plan or accounting differs")
+        check(type(r.logits) is torch.Tensor and r.logits.shape ==
+              rf.logits.shape and bool(torch.isfinite(r.logits).all()),
+              f"{what} request {r.uid}: logits")
+        diff = float((r.logits.float() - rf.logits.float()).abs().max())
+        scale = float(rf.logits.float().abs().max())
+        check(diff <= FUSED_TAIL_RTOL * scale,
+              f"{what} request {r.uid}: off by {diff:.3e} (scale "
+              f"{scale:.3e})")
+        worst = max(worst, diff)
+    return worst
+
+
+def meshed_groups_launches(fleet, got, rows: int, what: str) -> dict:
+    """One K2 launch a decoupled bitpack or Huffman group and one K5 a
+    per-channel group, each group one fused meshed forward over its
+    requests' ``rows`` rows each."""
+    groups = [g for g in fleet.cloud_groups if g.key is not None]
+    n_pc = sum(1 for g in groups if g.key[2] == "perchannel")
+    worker = fleet.mesh_worker
+    check(worker.fused_calls == len(groups) >= 1
+          and worker.group_sizes == [rows * len(g.uids) for g in groups],
+          f"{what}: {worker.fused_calls} fused meshed calls for "
+          f"{len(groups)} groups")
+    check(got["fused_decode"] == len(groups) - n_pc
+          and got["pc_decode"] == n_pc,
+          f"{what}: {got['fused_decode']} K2 and {got['pc_decode']} K5 "
+          f"launches for {len(groups)} groups")
+    return dict(groups=len(groups), perchannel_groups=n_pc,
+                group_sizes=list(worker.group_sizes),
+                k2_per_group=(got["fused_decode"] / (len(groups) - n_pc)
+                              if len(groups) > n_pc else None))
+
+
+def meshed_decodes(torch, base, params, mesh) -> dict:
+    """(a) of step 13: the sharded decodes of the served boundary."""
+    import numpy as np
+
+    from repro_torch.codec import get_codec
+    from repro_torch.core import entropy as ent
+    from repro_torch.kernels.quantize import ops as qops
+
+    served, _ = served_boundary(torch, base, params)
+    xs = [served[i:i + 1] for i in range(served.shape[0])]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for codec in ("bitpack", "huffman"):
+        tc = get_codec(codec)
+        for bits in MESH_DECODE_BITS:
+            blobs = tc.encode_batch(xs, bits)
+            # Ranges already on the card: a copy from host memory would
+            # wait for the timing's spin and put host time in the events.
+            mn = torch.from_numpy(np.stack(
+                [np.float32(b.x_min) for b in blobs])).cuda()
+            mx = torch.from_numpy(np.stack(
+                [np.float32(b.x_max) for b in blobs])).cuda()
+            if codec == "bitpack":
+                codes = torch.from_numpy(np.stack(
+                    [tc._wire_codes(b) for b in blobs])).cuda()
+                sharded, plain = (qops.dequantize_wire_batch_sharded,
+                                  qops.dequantize_wire_batch)
+            else:
+                wide = np.uint8 if bits <= 8 else np.uint16
+                codes = torch.from_numpy(np.stack(
+                    [ent.huffman_decode(b.payload).astype(wide)
+                     for b in blobs])).cuda()
+                sharded, plain = (qops.dequantize_codes_batch_sharded,
+                                  qops.dequantize_codes_batch)
+            shape = blobs[0].shape
+            qops.reset_launch_counts()
+            got = sharded(codes, mn, mx, bits, shape, mesh)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in qops.launch_counts().items() if v}
+            check(launches == {"fused_decode": 1},
+                  f"sharded {codec} decode at {bits} bits: {launches}")
+            local = got.to_local()
+            check(tuple(got.shape) == (len(blobs),) + tuple(shape)
+                  and tuple(local.shape) == tuple(got.shape),
+                  f"sharded {codec} decode shape {tuple(got.shape)}")
+            for i, b in enumerate(blobs):
+                check(same_bits(local[i], tc.decode(b, device="cuda")),
+                      f"sharded {codec} decode at {bits} bits: blob {i} "
+                      "differs from its own decode")
+            ms = device_ms(torch, lambda: sharded(codes, mn, mx, bits,
+                                                  shape, mesh), flush)
+            plain_ms = device_ms(torch, lambda: plain(codes, mn, mx, bits,
+                                                      shape), flush)
+            out[f"{codec}/{bits}"] = dict(ms=ms, plain_batch_ms=plain_ms,
+                                          launches=launches)
+            print(f"  (a) sharded {codec:7s} decode {len(blobs)} x "
+                  f"{tuple(shape)} at {bits:2d} bits: byte-equal per blob, "
+                  f"one K2 launch; {ms:.4f} ms (the batched decode alone "
+                  f"{plain_ms:.4f} ms)")
+    return out
+
+
+def serve_meshed(torch, results, base, params):
+    """Step 13: the meshed cloud on the card, a mesh of one."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.config import JaladConfig
+    from repro_torch.config.types import EDGE_TK1, EDGE_TX2, DeviceProfile
+    from repro_torch.data.synthetic import ImageStream, make_batch
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.serving.edge_cloud import build_edge_cloud_server
+    from repro_torch.serving.fleet import FleetRequest, FleetServer
+    from repro_torch.serving.workloads import make_trace
+
+    t0 = time.perf_counter()
+    rank_world = init_process_group("cuda")
+    mesh = make_host_mesh(device="cuda")
+    check(rank_world == (0, 1) and tuple(mesh.shape) == (1, 1),
+          f"mesh {tuple(mesh.shape)} over {rank_world}")
+    print(f"meshed cloud: {mesh.mesh_dim_names} = {tuple(mesh.shape)} over "
+          f"an nccl group of one in {time.perf_counter() - t0:.2f} s")
+    report = dict(decodes=meshed_decodes(torch, base, params, mesh))
+    counts = dict.fromkeys(qops.launch_counts(), 0)
+
+    # (b) ResNet-50 on step 6's trace.
+    profiles = [EDGE_TX2, EDGE_TK1, DeviceProfile("edge-mid", 1e12, 1.30),
+                DeviceProfile("edge-fast", 4e12, 0.90)]
+    cfg = base.model.cfg
+    trace = make_trace(**FLEET_TRACE)
+    batches = ImageStream(cfg.num_classes, 4, cfg.image_size,
+                          seed=500).batches(trace.n_requests)
+
+    def stream():
+        return trace.requests(lambda uid, d: batches[uid])
+
+    # The three codecs' tables (Huffman wins every group), then bitpack
+    # and per-channel pinned, so K5 runs on the meshed path too.
+    report["resnet50"] = {}
+    for label, engine in (("all", base),
+                          ("bitpack", pinned_engine(base, "bitpack")),
+                          ("perchannel", pinned_engine(base, "perchannel"))):
+        fleet, grew, nbytes = mesh_worker_growth(torch, lambda: FleetServer(
+            engine, params, profiles, cloud_mesh=mesh), params)
+        qops.reset_launch_counts()
+        t1 = time.perf_counter()
+        done = fleet.serve(stream())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = qops.launch_counts()
+        for k, v in got.items():
+            counts[k] += v
+        t1 = time.perf_counter()
+        fused = FleetServer(engine, params, profiles,
+                            fuse_cloud_tail=True).serve(stream())
+        torch.cuda.synchronize()
+        fused_wall = time.perf_counter() - t1
+        worst = compare_meshed(torch, done, fused, f"meshed {label}")
+        groups = meshed_groups_launches(fleet, got, 4, f"meshed {label}")
+        print(f"  (b) ResNet-50 fleet, {label}: {len(done)} requests, "
+              f"{groups['groups']} meshed groups {groups['group_sizes']} "
+              f"({groups['perchannel_groups']} per-channel), K2 launches a "
+              f"bitpack/Huffman group {groups['k2_per_group']}, plans equal "
+              f"to the fused tail's, logits max |diff| {worst:.3e}; worker "
+              f"built with {grew} B allocated for {nbytes} B of parameters; "
+              f"wall {wall * 1e3:.1f} ms (fused tail {fused_wall * 1e3:.1f} "
+              f"ms); launches { {k: v for k, v in got.items() if v} }")
+        report["resnet50"][label] = dict(
+            requests=len(done), max_abs_diff=worst, growth_bytes=grew,
+            param_bytes=nbytes, wall_s=wall, fused_wall_s=fused_wall,
+            launches=got, **groups)
+        del fleet, done, fused
+        gc.collect()
+
+    # (c) granite-34b at full width, cut depth, pinned cut.
+    model, lm_params, init_s = load_lm(torch, MESH_LM_ARCH, "device",
+                                       num_layers=MESH_LM_LAYERS)
+    lcfg, names = model.cfg, model.decoupling_points()
+    jc = JaladConfig(bits_choices=(8,), codec_choices=("bitpack",),
+                     accuracy_drop_budget=1.0)
+    t1 = sync_clock(torch)
+    server, _ = build_edge_cloud_server(
+        lcfg, jc, calib_batches=1, calib_batch_size=2, seq_len=MESH_LM_SEQ,
+        params=lm_params, points=[MESH_LM_POINT])
+    calib_s = sync_clock(torch) - t1
+    edges = _mesh_edges()
+    fleet, grew, nbytes = mesh_worker_growth(torch, lambda: FleetServer(
+        server.engine, lm_params, edges, cloud_mesh=mesh), lm_params)
+    print(f"  (c) {MESH_LM_ARCH} at {MESH_LM_LAYERS} of 88 layers "
+          f"({model.param_count():,} parameters, {nbytes / 1e9:.2f} GB "
+          f"{lcfg.dtype}, d_model {lcfg.d_model}) drawn on the card in "
+          f"{init_s:.2f} s; calibration at {names[MESH_LM_POINT]} in "
+          f"{calib_s:.2f} s; worker built with {grew} B allocated")
+
+    def lm_stream():
+        return [FleetRequest(uid=u, device_id=u % len(edges),
+                             batch=make_batch(lcfg, 1, MESH_LM_SEQ, seed=u),
+                             bandwidth=1e9)
+                for u in range(MESH_LM_WAVES * len(edges))]
+
+    qops.reset_launch_counts()
+    t1 = time.perf_counter()
+    done = fleet.serve(lm_stream())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = qops.launch_counts()
+    for k, v in got.items():
+        counts[k] += v
+    fused_fleet = FleetServer(server.engine, lm_params, edges,
+                              fuse_cloud_tail=True)
+    t1 = time.perf_counter()
+    fused = fused_fleet.serve(lm_stream())
+    torch.cuda.synchronize()
+    fused_wall = time.perf_counter() - t1
+    check(all(r.plan.point == MESH_LM_POINT for r in done),
+          f"{MESH_LM_ARCH}: plans {[_plan(r.plan) for r in done]}")
+    worst = compare_meshed(torch, done, fused, f"meshed {MESH_LM_ARCH}")
+    groups = meshed_groups_launches(fleet, got, 1, f"meshed {MESH_LM_ARCH}")
+    # Both fleets again, warm: a first serve pays first calls (DTensor's
+    # sharding propagation of each op signature, library handles).
+    warm = {}
+    for label, f in (("meshed", fleet), ("fused", fused_fleet)):
+        t1 = time.perf_counter()
+        f.serve(lm_stream())
+        torch.cuda.synchronize()
+        warm[label] = time.perf_counter() - t1
+    print(f"  (c) {MESH_LM_ARCH} fleet: {len(done)} requests cut at "
+          f"{names[MESH_LM_POINT]} ({done[0].plan.bits} bits "
+          f"{done[0].plan.codec}), {groups['groups']} meshed groups "
+          f"{groups['group_sizes']}, K2 launches a group "
+          f"{groups['k2_per_group']}; logits {tuple(done[0].logits.shape)} "
+          f"max |diff| against the fused tail {worst:.3e}; wall "
+          f"{wall * 1e3:.1f} ms (fused tail {fused_wall * 1e3:.1f} ms), "
+          f"again warm {warm['meshed'] * 1e3:.1f} ms (fused tail "
+          f"{warm['fused'] * 1e3:.1f} ms)")
+    report[MESH_LM_ARCH] = dict(
+        layers=MESH_LM_LAYERS, point=names[MESH_LM_POINT],
+        params=model.param_count(), param_bytes=nbytes, draw_s=init_s,
+        calibration_s=calib_s, growth_bytes=grew, requests=len(done),
+        max_abs_diff=worst, wall_s=wall, fused_wall_s=fused_wall,
+        warm_wall_s=warm["meshed"], warm_fused_wall_s=warm["fused"],
+        launches=got, **groups)
+    del fleet, fused_fleet, done, fused, server, lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"meshed launches: {counts}")
+    for name in ("fused_decode", "pc_decode"):
+        check(counts[name] > 0, f"{name} never launched on the meshed path")
+    results["meshed"] = dict(launches=counts, **report)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [v for k in sorted(tree) for v in _leaves(tree[k])]
@@ -3412,11 +3742,12 @@ def main(argv=None) -> int:
     moe = step("moe lm serving", serve_moe_lm)
     mm = step("multimodal lm serving", serve_mm_lm)
     trained = step("training", serve_train)
+    meshed = step("meshed cloud", serve_meshed, base, params)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
              "threelaunch": k6_path, "channel_removal": removal,
              "three_tier": three, **lm,
              "rnn_stream": rnn, "moe_stream": moe, "mm_serve": mm,
-             "train_serve": trained}
+             "train_serve": trained, "meshed": meshed}
 
     def row(kernel, label="stem", bits=8):
         return next(r for r in rows if r["kernel"] == kernel

@@ -154,6 +154,28 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+# ---------------------------------------------------------------------------
 # Training / serving
 # ---------------------------------------------------------------------------
 

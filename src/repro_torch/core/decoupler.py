@@ -8,8 +8,9 @@ The three-tier split (device -> edge server -> cloud) is here too:
 ``decide_tri``; so is token streaming: the engine's ``stream_terms`` /
 ``decide_streaming`` and ``DecoupledRunner.stream_session``; so is
 ``compress_state``, the recurrent-state extension; so is
-``run_simulated``, the codec's value transform without a wire. Not
-ported: the meshed cloud.
+``run_simulated``, the codec's value transform without a wire; so is the
+meshed cloud's hook (``DecoupledRunner.mesh_worker``,
+``JaladEngine.with_cloud_mesh``).
 """
 from __future__ import annotations
 
@@ -85,6 +86,10 @@ class DecoupledRunner:
     model: Model
     params: Any
     plan: DecoupledPlan
+    # Optional repro_torch.serving.meshed.MeshedCloudWorker: when set,
+    # cloud_step_batch routes the groups it can shard through the meshed
+    # tail (see cloud_step_batch).
+    mesh_worker: Optional[Any] = None
 
     def __post_init__(self):
         from repro_torch.codec import get_codec
@@ -136,13 +141,24 @@ class DecoupledRunner:
         (convolutions pick other algorithms, and sum in another order, at
         another batch size). A group of one blob, blobs carrying
         ``extras``, mixed codecs or boundaries whose trailing dims differ
-        run through the per-request :meth:`cloud_step`."""
+        run through the per-request :meth:`cloud_step`.
+
+        With a ``mesh_worker`` the group goes first to
+        :meth:`MeshedCloudWorker.try_cloud_step_batch`: one sharded decode
+        and ONE tail forward over the mesh (the ``fuse_tail=True``
+        contract), same-structure extras batched too. Groups the worker
+        cannot shard run through the logic below."""
         from repro_torch.codec import get_codec
 
         if extras_list is None:
             extras_list = [None] * len(blobs)
         if not blobs:
             return []
+        if self.mesh_worker is not None:
+            out = self.mesh_worker.try_cloud_step_batch(
+                blobs, extras_list, self.plan)
+            if out is not None:
+                return out
         batchable = (
             len(blobs) > 1
             and all(e is None for e in extras_list)
@@ -292,6 +308,9 @@ class JaladEngine:
     latency: LatencyModel
     cfg: JaladConfig
     point_indices: Optional[List[int]] = None   # tables row -> model point
+    # Cloud mesh model applied to lazily built spaces (set by
+    # with_cloud_mesh).
+    cloud_mesh: Optional[Any] = None
     _plan_space: Optional[PlanSpace] = field(
         default=None, repr=False, compare=False)
     _stream_terms: Optional[StreamPlanTerms] = field(
@@ -315,13 +334,16 @@ class JaladEngine:
         power model. Its ``degenerate()`` view at ``BW1 = inf`` decides as
         :attr:`plan_space` does, bit for bit."""
         if self._tri_space is None:
-            self._tri_space = TriPlanSpace.build(
+            tri = TriPlanSpace.build(
                 self.tables, self.latency, self.cfg.accuracy_drop_budget,
                 edge_server=self.cfg.edge_server,
                 power=self.cfg.power,
                 energy_weight=self.cfg.energy_weight,
                 point_indices=self.point_indices,
             )
+            if self.cloud_mesh is not None:
+                tri = tri.with_cloud_mesh(self.cloud_mesh)
+            self._tri_space = tri
         return self._tri_space
 
     def decide_tri(self, bandwidth1: Optional[float] = None,
@@ -401,8 +423,22 @@ class JaladEngine:
             _plan_space=self.plan_space.with_edge(edge_profile),
             _stream_terms=None, _tri_space=None)
 
-    def make_runner(self, params, plan: DecoupledPlan) -> DecoupledRunner:
-        return DecoupledRunner(self.model, params, plan)
+    def with_cloud_mesh(self, mesh_model) -> "JaladEngine":
+        """An engine whose PlanSpace prices the cloud side under a
+        :class:`~repro_torch.core.latency.CloudMeshModel` (T_C / M plus
+        per-layer collectives): the planner half of the meshed cloud
+        worker. Identity at mesh size 1; ``for_edge`` views derived from
+        this engine keep the meshed cloud vector."""
+        tri = (self._tri_space.with_cloud_mesh(mesh_model)
+               if self._tri_space is not None else None)
+        return dataclasses.replace(
+            self, _plan_space=self.plan_space.with_cloud_mesh(mesh_model),
+            _stream_terms=None, _tri_space=tri, cloud_mesh=mesh_model)
+
+    def make_runner(self, params, plan: DecoupledPlan,
+                    mesh_worker: Optional[Any] = None) -> DecoupledRunner:
+        return DecoupledRunner(self.model, params, plan,
+                               mesh_worker=mesh_worker)
 
     def make_tri_runner(self, params,
                         plan: DecoupledPlan) -> TriDecoupledRunner:

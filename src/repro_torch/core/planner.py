@@ -24,7 +24,7 @@ heterogeneous edge devices over one shared ``PlanSpace``, and its
 ``decide_all(bandwidths)`` re-plans the whole fleet in one fused op,
 bitwise-equal to D independent ``with_edge(p).decide(bw)`` calls. The
 three-tier extension is :mod:`repro_torch.core.tri_planner`; the streaming
-one is not ported yet.
+one is :class:`StreamPlanTerms` (``PlanSpace.with_streaming``).
 """
 from __future__ import annotations
 

@@ -362,6 +362,59 @@ def dequantize_codes(codes: torch.Tensor, mn, mx, bits: int, shape,
                                   out_dtype)[0]
 
 
+def _decode_sharded(decode, codes, mn, mx, bits: int, shape, mesh,
+                    batch_axis: str, out_dtype):
+    """``decode`` of this rank's rows of a (B, ...) stack, as a DTensor
+    sharded on its batch dim over ``batch_axis`` and replicated over the
+    mesh's other axes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    if batch_axis not in names:
+        raise ValueError(f"mesh axes {tuple(names)} have no {batch_axis!r}")
+    j = names.index(batch_axis)
+    n = mesh.size(j)
+    bsz = int(codes.shape[0])
+    if bsz % n:
+        raise ValueError(f"a batch of {bsz} does not split over the "
+                         f"{n} ranks of {batch_axis!r}")
+    per = bsz // n
+    lo = mesh.get_coordinate()[j] * per
+    rows = slice(lo, lo + per)
+    local = codes[rows]
+    if isinstance(local, np.ndarray):
+        local = torch.from_numpy(np.ascontiguousarray(local))
+    out = decode(local.to(mesh.device_type), mn[rows], mx[rows], bits,
+                 shape, out_dtype)
+    return DTensor.from_local(
+        out, mesh, [Shard(0) if a == batch_axis else Replicate()
+                    for a in names], run_check=False)
+
+
+def dequantize_wire_batch_sharded(codes_flat, mn, mx, bits: int, shape, mesh,
+                                  batch_axis: str = "data",
+                                  out_dtype=torch.float32):
+    """:func:`dequantize_wire_batch` straight into per-rank batch shards:
+    every rank holds the (B, wire_len) codes and (B,) ranges (numpy or
+    tensors), decodes only its own rows (one K2 launch on the card) and
+    returns its part of the (B, *shape) DTensor, sharded over
+    ``batch_axis``. Each sample decodes byte-identically to decoding it
+    alone. B must split evenly over ``batch_axis``: the meshed cloud
+    worker pads the group to a multiple first."""
+    return _decode_sharded(dequantize_wire_batch, codes_flat, mn, mx, bits,
+                           shape, mesh, batch_axis, out_dtype)
+
+
+def dequantize_codes_batch_sharded(codes2, mn, mx, bits: int, shape, mesh,
+                                   batch_axis: str = "data",
+                                   out_dtype=torch.float32):
+    """:func:`dequantize_codes_batch` (one unpacked code an element, e.g.
+    the host Huffman decoder's output) into per-rank batch shards, as
+    :func:`dequantize_wire_batch_sharded`."""
+    return _decode_sharded(dequantize_codes_batch, codes2, mn, mx, bits,
+                           shape, mesh, batch_axis, out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Per-channel codec: K4 encode, K5 decode
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ from repro_torch.config.types import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.models.init import materialize
+from repro_torch.models.init import abstractify, logical_axes, materialize
 from repro_torch.models.layers.mamba2 import mamba_dims
 
 # Families the port builds; the others raise in build_model.
@@ -68,6 +68,13 @@ class Model:
         or, with ``draw="device"``, on the device itself, a bounded chunk
         at a time (see :func:`repro_torch.models.init.materialize`)."""
         return materialize(self.specs, seed, resolve_device(device), draw)
+
+    def abstract_params(self) -> Any:
+        """The parameter tree as ``meta`` tensors: no allocation."""
+        return abstractify(self.specs)
+
+    def param_logical_axes(self) -> Any:
+        return logical_axes(self.specs)
 
     def param_count(self) -> int:
         def count(tree):
@@ -153,6 +160,16 @@ class Model:
             if i in want:
                 taps[i] = x
         return [(taps[p], None) for p in pts]
+
+    def boundary_logical_axes(self, ndim: int):
+        """Logical axis names of the boundary activation crossing the cut
+        (rank ``ndim``). The meshed cloud worker pins these on entry:
+        batch resolves to the "data" mesh axis per the rule table; the
+        remaining activation dims (spatial / seq / embed) stay replicated
+        so the sharded params carry the "model" axis."""
+        if self.cfg.family == "cnn":
+            return ("batch",) + (None,) * (ndim - 1)
+        return ("batch", "seq", "embed")[:ndim] + (None,) * max(0, ndim - 3)
 
     def run_tail(self, params, boundary, point: int,
                  extras: Optional[Any] = None) -> torch.Tensor:

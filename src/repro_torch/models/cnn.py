@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.types import ModelConfig
 from repro_torch.models.init import spec
+from repro_torch.sharding.activation import on_batch_shard
 
 
 @dataclass
@@ -202,10 +203,12 @@ def cnn_param_specs(cfg: ModelConfig):
 
 def cnn_forward(layers: List[CNNLayer], params, x, upto: int = -1,
                 start: int = 0):
-    """Run layers [start, upto); upto=-1 means all."""
+    """Run layers [start, upto); upto=-1 means all. On a batch-sharded
+    DTensor each layer runs on the local batch shard, its weights
+    gathered at use."""
     end = len(layers) if upto < 0 else upto
     for lyr in layers[start:end]:
-        x = lyr.apply(params[lyr.name], x)
+        x = on_batch_shard(lyr.apply, params[lyr.name], x)
     return x
 
 

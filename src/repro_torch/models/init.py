@@ -70,6 +70,27 @@ def stack_tree(specs, n: int, axis_name: str = "layers"):
     return {k: stack_tree(v, n, axis_name) for k, v in specs.items()}
 
 
+def _map_specs(fn, specs):
+    """``fn`` over every ParamSpec of a nested dict / list, in order."""
+    if is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, list):
+        return [_map_specs(fn, v) for v in specs]
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def abstractify(specs):
+    """Tensors on the ``meta`` device for a ParamSpec tree: shapes and
+    dtypes, no allocation."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=torch_dtype(
+        s.dtype), device="meta"), specs)
+
+
+def logical_axes(specs):
+    """Tree of logical-axis tuples, same structure as the params."""
+    return _map_specs(lambda s: s.logical, specs)
+
+
 def _fan_in(s: ParamSpec) -> int:
     # Last-but-one dims are the fan-in for 2D+ weights (the reference's rule).
     if len(s.shape) >= 2:
@@ -127,11 +148,4 @@ def materialize(specs, seed: int, device, draw: str = "cpu") -> dict:
         chunk = DEVICE_CHUNK if draw == "device" else int(np.prod(s.shape))
         return materialize_leaf(gen, s, on, chunk).to(device)
 
-    def walk(tree):
-        if isinstance(tree, ParamSpec):
-            return leaf(tree)
-        if isinstance(tree, list):
-            return [walk(v) for v in tree]
-        return {k: walk(v) for k, v in tree.items()}
-
-    return walk(specs)
+    return _map_specs(leaf, specs)

@@ -22,8 +22,11 @@ import torch
 from repro_torch.config.types import ModelConfig
 from repro_torch.models.init import spec
 from repro_torch.models.layers import rope as rope_lib
+from repro_torch.sharding.activation import constrain
 
 _NEG_INF = -1e30
+_QHEADS = ("batch", "seq", "heads", "head_dim")
+_KVHEADS = ("batch", "seq", "kv_heads", "head_dim")
 # The reference divides by 127.0 in quantize_kv_row; compiled XLA turns
 # that into a multiplication by the float32 reciprocal, and the int8 codes
 # and scales match the compiled reference bit for bit only so.
@@ -74,9 +77,9 @@ def project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
                 positions_3d: Optional[torch.Tensor] = None):
     """Project to (q, k, v); applies qk-norm then RoPE/M-RoPE to q and k
     (M-RoPE at ``positions_3d``, or at the text ids of ``positions``)."""
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    q = constrain(_proj(x, params["wq"]), _QHEADS)
+    k = constrain(_proj(x, params["wk"]), _KVHEADS)
+    v = constrain(_proj(x, params["wv"]), _KVHEADS)
     q, k = _maybe_qk_norm(params, q, k)
     if rope and cfg.rope_kind != "none":
         if cfg.rope_kind == "mrope":

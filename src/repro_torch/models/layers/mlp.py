@@ -5,6 +5,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.init import spec
+from repro_torch.sharding.activation import constrain
+
+_FFN = ("batch", "seq", "ffn")
 
 
 def swiglu_spec(d: int, f: int, dtype: str):
@@ -16,8 +19,8 @@ def swiglu_spec(d: int, f: int, dtype: str):
 
 
 def apply_swiglu(params, x: torch.Tensor) -> torch.Tensor:
-    gate = torch.matmul(x, params["w_gate"])
-    up = torch.matmul(x, params["w_up"])
+    gate = constrain(torch.matmul(x, params["w_gate"]), _FFN)
+    up = constrain(torch.matmul(x, params["w_up"]), _FFN)
     h = F.silu(gate.float()).to(x.dtype) * up
     return torch.matmul(h, params["w_down"])
 
@@ -33,6 +36,6 @@ def gelu_mlp_spec(d: int, f: int, dtype: str):
 
 def apply_gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation.
-    h = torch.matmul(x, params["w_in"]) + params["b_in"]
+    h = constrain(torch.matmul(x, params["w_in"]) + params["b_in"], _FFN)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return torch.matmul(h, params["w_out"]) + params["b_out"]

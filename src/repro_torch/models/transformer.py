@@ -38,6 +38,9 @@ from repro_torch.config.types import ModelConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.init import spec, stack_tree, torch_dtype
 from repro_torch.models.layers.norms import apply_norm, norm_spec
+from repro_torch.sharding.activation import constrain
+
+_HID = ("batch", "seq", "embed")   # layer-boundary activation layout
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +172,11 @@ def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg.norm_kind, params["final_norm"], x)
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].t())
-    return torch.matmul(x, params["lm_head"])
+        lg = torch.matmul(x, params["embed"].t())
+    else:
+        lg = torch.matmul(x, params["lm_head"])
+    # Keep the (B, S, V) tensor vocab-sharded.
+    return constrain(lg, ("batch", "seq", "vocab"))
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -229,12 +235,12 @@ def _apply_block(kind: str, params, x: torch.Tensor, ctx: blk.SeqContext,
 
 def run_encoder(params, cfg: ModelConfig, src: torch.Tensor) -> torch.Tensor:
     """Seamless-style encoder over precomputed (stub) frame embeddings."""
-    x = src.to(torch_dtype(cfg.dtype))
+    x = constrain(src.to(torch_dtype(cfg.dtype)), _HID)
     b, s, _ = x.shape
     ctx = blk.SeqContext(_positions(b, s, x.device), 0, 0)
     enc = params["encoder"]
     for layer in _unstack(enc["segments"][0], cfg.num_encoder_layers):
-        x = _apply_block("E", layer, x, ctx, cfg)[0]
+        x = constrain(_apply_block("E", layer, x, ctx, cfg)[0], _HID)
     return apply_norm("layernorm", enc["final_norm"], x)
 
 
@@ -252,7 +258,8 @@ def _seq_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     if cfg.is_encdec:
         enc_out = run_encoder(params, cfg, batch["src_frames"])
     x, positions, pos3d = embed_inputs(params, cfg, batch)
-    return x, {"positions": positions, "enc_out": enc_out, "pos3d": pos3d}
+    return constrain(x, _HID), {"positions": positions, "enc_out": enc_out,
+                                "pos3d": pos3d}
 
 
 def _seq_ctx(cfg: ModelConfig, s: int, extras: Dict[str, Any],
@@ -312,6 +319,7 @@ def _run_seq(params, cfg: ModelConfig, x: torch.Tensor, ctx: blk.SeqContext,
         entries = []
         for layer in _seg_layers(params, plan[sj], sj)[lo:hi]:
             x, aux, c = _apply_block(plan[sj].kind, layer, x, ctx, cfg)
+            x = constrain(x, _HID)
             if aux is not None:
                 aux_total = aux_total + aux
             entries.append(c)
@@ -330,6 +338,7 @@ def _run_decode(params, cfg: ModelConfig, x: torch.Tensor,
         for layer, entry in zip(layers, _unstack(cache, hi - lo)):
             x, _ = blk.block_apply_decode(plan[sj].kind, layer, x, entry,
                                           ctx, cfg)
+            x = constrain(x, _HID)
     return x
 
 
@@ -391,7 +400,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
                 ) -> Tuple[torch.Tensor, List[Any]]:
     """One decode step: tokens (B, 1), pos an int or (B,). Returns
     (logits (B, 1, V), caches), the caches updated in place."""
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), _HID)
     ctx = _decode_ctx(cfg, pos, x.shape[0], x.device,
                       effective_window(cfg, _decode_seq_hint(caches)), live)
     x = _run_decode(params, cfg, x, ctx, _all_ranges(cfg), caches)
@@ -500,7 +509,7 @@ def prefill_tail(params, cfg: ModelConfig, boundary: torch.Tensor,
     boundary's shape. Returns (logits (B, S, V), tail_caches)."""
     check_streamable(cfg)
     ctx = _boundary_ctx(cfg, boundary, None, cache_len)
-    x, caches, _ = _run_seq(params, cfg, boundary, ctx,
+    x, caches, _ = _run_seq(params, cfg, constrain(boundary, _HID), ctx,
                             _tail_ranges(cfg, point))
     return _logits(params, cfg, x), caches
 
@@ -512,7 +521,7 @@ def decode_head(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
     """Edge half of one decode step: blocks [0, point] on one new token a
     row. ``seq_hint`` is the nominal sequence length (the shared cache
     length). Returns (boundary (B, 1, d), head caches, updated in place)."""
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), _HID)
     ctx = _decode_ctx(cfg, pos, x.shape[0], x.device,
                       effective_window(cfg, seq_hint), live)
     x = _run_decode(params, cfg, x, ctx, _head_ranges(cfg, point),
@@ -529,8 +538,8 @@ def decode_tail(params, cfg: ModelConfig, boundary: torch.Tensor, pos,
     caches, updated in place)."""
     ctx = _decode_ctx(cfg, pos, boundary.shape[0], boundary.device,
                       effective_window(cfg, seq_hint), live)
-    x = _run_decode(params, cfg, boundary, ctx, _tail_ranges(cfg, point),
-                    tail_caches)
+    x = _run_decode(params, cfg, constrain(boundary, _HID), ctx,
+                    _tail_ranges(cfg, point), tail_caches)
     return _logits(params, cfg, x), tail_caches
 
 

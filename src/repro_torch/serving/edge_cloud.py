@@ -75,10 +75,15 @@ class Servable(Protocol):
 
 @dataclass
 class RunnerCache:
-    """(point, bits, codec) -> DecoupledRunner; thread-safe."""
+    """(point, bits, codec) -> DecoupledRunner; thread-safe.
+    ``mesh_worker`` (a :class:`~repro_torch.serving.meshed.
+    MeshedCloudWorker`) goes into every runner built here, so all cached
+    plans share ONE mesh and sharded parameter tree for their batched
+    cloud steps."""
 
     engine: JaladEngine
     params: Any
+    mesh_worker: Optional[Any] = None
     _cache: Dict[Tuple[int, int, str], DecoupledRunner] = field(
         default_factory=dict)
     _lock: Any = field(default_factory=threading.Lock)
@@ -95,7 +100,8 @@ class RunnerCache:
         with self._lock:
             runner = self._cache.get(key)
         if runner is None:
-            runner = self.engine.make_runner(self.params, plan)
+            runner = self.engine.make_runner(self.params, plan,
+                                             mesh_worker=self.mesh_worker)
             with self._lock:
                 runner = self._cache.setdefault(key, runner)
         return runner

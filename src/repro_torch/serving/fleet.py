@@ -28,7 +28,11 @@ decision plane held in stacked arrays:
   (:meth:`DecoupledRunner.cloud_step_batch`: one K2 or K5 launch). By
   default the tails then run per request (equal to the synchronous
   server); ``fuse_cloud_tail=True`` runs ONE concatenated tail forward
-  per group (fastest, equal within float tolerance only).
+  per group (fastest, equal within float tolerance only). With
+  ``cloud_mesh`` the shared worker is sharded over a ``DeviceMesh``
+  (:class:`~repro_torch.serving.meshed.MeshedCloudWorker`): every rank
+  runs the same ``serve`` over the same requests, and only the cloud
+  decode and tail are split.
 
 * **Reproducible accounting.** Per-device FIFO edge and link stages feed
   a single shared cloud stage that serves requests in arrival order (ties
@@ -37,8 +41,7 @@ decision plane held in stacked arrays:
 
 Trace-shaped request streams (diurnal load, bandwidth walks, flash
 crowds) for driving this server live in :mod:`repro_torch.serving.
-workloads`. The meshed cloud worker (``cloud_mesh``) is not ported yet:
-it raises ``NotImplementedError``.
+workloads`.
 """
 from __future__ import annotations
 
@@ -60,10 +63,6 @@ from repro_torch.serving.edge_cloud import LatencyBreakdown, RunnerCache
 from repro_torch.serving.pipeline import StageTimeline
 
 PlanKey = Tuple[int, int, str]            # (point, bits, codec)
-
-_MESH_NOT_PORTED = (
-    "FleetServer(cloud_mesh=...): the meshed cloud "
-    "(serving/meshed.py, MeshedCloudWorker) is not ported yet")
 
 
 class FleetDevice:
@@ -186,9 +185,19 @@ class FleetServer:
     # per serving wave. False: the per-device AdaptationController loop,
     # kept as the reference path the vectorized one is pinned against.
     vectorized: bool = True
-    # A mesh to shard the shared cloud worker across: the meshed cloud
-    # (serving/meshed.py) is not ported yet; anything but None raises.
+    # Optional DeviceMesh: shard the shared cloud worker across it.
+    # Grouped requests then decode and run their tail through ONE sharded
+    # forward (serving.meshed.MeshedCloudWorker: float-equivalent to the
+    # single-device tails, the fuse_cloud_tail=True contract), and the
+    # planner prices the cloud side under the matching CloudMeshModel, so
+    # plans shift as the mesh widens. Every rank of the mesh runs serve()
+    # over the same requests.
     cloud_mesh: Optional[Any] = None
+    # Planner-side per-remaining-layer collective seconds for the mesh
+    # model (0.0 = ideal scaling; CloudMeshModel.from_interconnect prices
+    # a real interconnect).
+    cloud_collective_s: float = 0.0
+    mesh_worker: Optional[Any] = None
     runners: Optional[RunnerCache] = None
     devices: List[FleetDevice] = field(default_factory=list)
     completed: List[FleetRequest] = field(default_factory=list)
@@ -211,9 +220,20 @@ class FleetServer:
         if not self.edge_profiles:
             raise ValueError("FleetServer needs at least one edge profile")
         if self.cloud_mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
+            from repro_torch.core.latency import CloudMeshModel
+            from repro_torch.serving.meshed import MeshedCloudWorker, mesh_size
+
+            # Planner and worker see the SAME mesh: the decision space is
+            # re-derived with the mesh-parallel cloud model (identity at
+            # size 1) before the fleet plane is stacked over it.
+            self.engine = self.engine.with_cloud_mesh(CloudMeshModel(
+                mesh_size(self.cloud_mesh), float(self.cloud_collective_s)))
+            if self.mesh_worker is None:
+                self.mesh_worker = MeshedCloudWorker(
+                    self.engine.model, self.params, self.cloud_mesh)
         if self.runners is None:
-            self.runners = RunnerCache(self.engine, self.params)
+            self.runners = RunnerCache(self.engine, self.params,
+                                       mesh_worker=self.mesh_worker)
         d = len(self.edge_profiles)
         if self.fleet_space is None:
             self.fleet_space = FleetPlanSpace.build(
@@ -491,15 +511,17 @@ def build_fleet_server(
     cloud_batch: int = 8,
     vectorized: bool = True,
     cloud_mesh: Any = None,
+    cloud_collective_s: float = 0.0,
     fuse_cloud_tail: bool = False,
 ) -> Tuple[FleetServer, Any]:
     """End-to-end factory on ``device`` (default: the CUDA card): one
     calibration (the tables are device-independent), one PlanSpace, one
     stacked FleetPlanSpace over the device profiles."""
     from repro_torch.serving.edge_cloud import build_edge_cloud_server
+    from repro_torch.sharding.rules import mesh_axes
 
     if cloud_mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
+        mesh_axes(cloud_mesh)          # refuse a bad mesh before calibrating
     srv, params = build_edge_cloud_server(
         cfg, jalad_cfg, seed=seed, calib_batches=calib_batches,
         calib_batch_size=calib_batch_size, seq_len=seq_len, params=params,
@@ -507,5 +529,7 @@ def build_fleet_server(
     )
     fleet = FleetServer(srv.engine, params, list(edge_profiles),
                         cloud_batch=cloud_batch, vectorized=vectorized,
+                        cloud_mesh=cloud_mesh,
+                        cloud_collective_s=cloud_collective_s,
                         fuse_cloud_tail=fuse_cloud_tail)
     return fleet, params

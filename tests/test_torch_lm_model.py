@@ -219,10 +219,11 @@ def test_batched_rows_at_own_positions_equal_batch_one():
 
 def test_unported_families_raise():
     """Every family of the reference builds now, vlm and audio included,
-    with every block kind; what the port still leaves out raises and
-    names its module: the meshed cloud (``serving/meshed.py``). The
-    fleet's token streams and the three-tier streaming terms are ported
-    and no longer raise."""
+    with every block kind, and the meshed cloud serves: a fleet built with
+    ``cloud_mesh`` (a one-rank host mesh) answers its requests. What the
+    port still leaves out raises and names its module: ``aot_tail_report``
+    needs ``launch/hlo_analysis.py``. The fleet's token streams and the
+    three-tier streaming terms are ported and no longer raise."""
     import types
 
     from repro_torch.config import JaladConfig, ModelConfig
@@ -246,11 +247,36 @@ def test_unported_families_raise():
         assert blocks.block_spec(kind, get_config("zamba2-2.7b").reduced())
     spec = blocks.block_spec("e", get_config("grok-1-314b").reduced())
     assert set(spec["mlp"]) == {"router", "w_gate", "w_up", "w_down"}
-    with pytest.raises(NotImplementedError, match=r"serving/meshed\.py"):
-        fleet.build_fleet_server(get_config("resnet50").reduced(),
-                                 JaladConfig(), [], cloud_mesh=object())
-    with pytest.raises(NotImplementedError, match=r"serving/meshed\.py"):
-        fleet.FleetServer(None, None, [object()], cloud_mesh=object())
+    import torch.distributed as dist
+
+    from repro_torch.config.types import EDGE_TK1, EDGE_TX2
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import meshed
+
+    started = not dist.is_initialized()
+    try:
+        cfg = get_config("granite-34b").reduced()
+        srv, _ = fleet.build_fleet_server(
+            cfg, JaladConfig(bits_choices=(4, 8), codec_choices=("bitpack",),
+                             accuracy_drop_budget=0.5),
+            [EDGE_TX2, EDGE_TK1], calib_batches=1, calib_batch_size=2,
+            seq_len=8, device="cpu", cloud_mesh=make_host_mesh(device="cpu"),
+            cloud_collective_s=1e-4)
+        done = srv.serve([fleet.FleetRequest(
+            uid=u, device_id=u % 2, batch=make_batch(cfg, 1, 8, seed=u),
+            bandwidth=3e5) for u in range(4)])
+        assert srv.engine.cloud_mesh.collective_s_per_point == 1e-4
+        assert srv.mesh_worker.fused_calls >= 1
+        assert [tuple(r.logits.shape) for r in done] == \
+            [(1, 8, cfg.vocab_size)] * 4
+        assert all(bool(torch.isfinite(r.logits).all()) for r in done)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    with pytest.raises(NotImplementedError,
+                       match=r"launch/hlo_analysis\.py"):
+        meshed.aot_tail_report(srv.engine.model, 0)
     # The streaming hooks run: an empty fleet has no stream to step.
     idle = types.SimpleNamespace(stream_sessions=[], cloud_groups=[])
     assert fleet.FleetServer.step_streams(idle) == 0

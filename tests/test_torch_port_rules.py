@@ -44,6 +44,10 @@ MM_MODULES = ("repro_torch.configs.qwen2_vl_7b",
 TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.training.loop",
                  "repro_torch.checkpoint.store", "repro_torch.launch.train",
                  "repro_torch.utils.log", "repro_torch.utils.tree")
+# The meshed cloud.
+MESH_MODULES = ("repro_torch.sharding", "repro_torch.sharding.rules",
+                "repro_torch.sharding.activation", "repro_torch.launch.mesh",
+                "repro_torch.serving.meshed")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -63,10 +67,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True,
                          timeout=300).stdout.split(" ")
-    assert int(out[0]) >= 79          # every module of the port was imported
+    assert int(out[0]) >= 84          # every module of the port was imported
     assert out[1].strip() == "[]"
     assert set(LM_MODULES + SSM_MODULES + CORE_MODULES + MM_MODULES
-               + TRAIN_MODULES) <= set(out[2].strip().split(","))
+               + TRAIN_MODULES + MESH_MODULES) <= set(out[2].strip().split(","))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -81,6 +85,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.serving.three_tier import build_three_tier_server
     from repro_torch.launch.serve import main
     from repro_torch.launch.train import main as train_main
+    from repro_torch.launch import mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("resnet50").reduced()
@@ -105,6 +110,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
                                         seq_len=4),
         lambda: main(["--arch", "olmo-1b", "--reduced", "--continuous"]),
         lambda: train_main(["--arch", "olmo-1b", "--reduced"]),
+        lambda: mesh.init_process_group(),
+        lambda: mesh.make_host_mesh(),
+        lambda: mesh.make_production_mesh(),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
