@@ -208,7 +208,8 @@ NVIDIA card.
    ``TRAIN_SEQ`` tokens from ``ShardedLoader``: the median step time,
    tokens/s, peak memory, the
    losses (the mean of the last three must be below the first three's)
-   and the step's share of the bf16 peak; (c) ``save_checkpoint`` of the
+   and the step's share of the bf16 peak (the model's own
+   ``analytic_step_flops``); (c) ``save_checkpoint`` of the
    parameters and the AdamW state to a temporary directory and
    ``restore_checkpoint``, every leaf equal bit for bit; (d) the restored
    weights served: ``ServeSession``'s greedy tokens and a token stream at
@@ -234,8 +235,31 @@ NVIDIA card.
    ``torch.cuda.memory_allocated`` before and after building it must grow
    by less than ``MESH_GROWTH_SHARE`` of the parameter bytes (the shards
    are views of the parameters). The counters are set to 0 just before
-   each meshed serve and read just after (the ``meshed`` path).
-14. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+   each meshed serve and read just after (the ``meshed`` path). One
+   tail of the granite-34b worker (``ACCT_TAIL_BATCH`` boundaries) is
+   counted by ``launch/step_analysis.py``'s ``StepCounter`` for step 14.
+14. The step accounting (``launch/step_analysis.py``, ``launch/dryrun.py``),
+   on the card's host; no kernel launches. (a) ``aot_tail_report`` of
+   full-width, full-depth granite-34b (94.5 GB of bfloat16 weights, none
+   allocated) at its middle cut, ``ACCT_BATCH`` x ``ACCT_SEQ``, without a
+   mesh and on step 13's mesh of one: ``torch.cuda.memory_allocated``
+   grows by less than ``ACCT_GROWTH_BYTES``, the two reports agree on
+   every key, and the report of step 13's 36-layer config at its cut
+   counts the FLOPs the real meshed tail of step 13 counted, exactly.
+   (b) Full-width olmo-1b in bfloat16 takes ``build_step``'s train step
+   (forward, backward, AdamW) on the mesh of one at ``TRAIN_BATCH`` x
+   ``TRAIN_SEQ``: its counted FLOPs equal the fake dry run's of the same
+   step exactly and lie within ``ACCT_BAND`` of ``analytic_step_flops``,
+   and its loss equals ``Model.loss_fn``'s on the same weights and batch
+   within ``TRAIN_SMALL_LOSS_RTOL``; the median of ``ACCT_TIMED_STEPS``
+   warm steps (host clock around ``synchronize``) and ``mfu``, the
+   analytic FLOPs over that time at the bf16 dense peak, beside the card
+   line. (c) ``python -m repro_torch.launch.dryrun --arch olmo-1b --shape
+   decode_32k``, and the same with ``--multi-pod``, each in a subprocess
+   started at the step's start and waited for before (b)'s timed steps,
+   which so run with no other work on the host: each must exit 0 and
+   print its record; their seconds.
+15. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -257,7 +281,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# The H100's figures (NVIDIA's data sheet, SXM, 700 W; config/types.py).
+from repro_torch.config.types import H100, H100_HBM_BW  # noqa: E402
+
+HBM_BYTES_PER_S = H100_HBM_BW
 SHAPES = {"stem": (4, 64, 112, 112), "res5": (4, 2048, 7, 7),
           "odd": (1, 3, 37, 41)}
 BITS = (2, 4, 8, 16)
@@ -446,12 +473,12 @@ MM_SMALL_SEQ = {"qwen2-vl-7b": 24, "seamless-m4t-large-v2": 12}
 # tokens from ShardedLoader (random tokens, so the loss falls toward
 # ln(vocab) from the random weights' higher one) at TRAIN_LR with a short
 # warm-up. The first step carries cuBLAS's set-up, so the median is over
-# the rest. 6 x parameters x tokens floating-point operations a step, at
+# the rest. The model's analytic FLOPs of a step (analytic_step_flops), at
 # the H100's bf16 dense peak (989 TFLOP/s, NVIDIA's data sheet, 700 W).
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 12
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
-BF16_PEAK_FLOPS = 989e12
+BF16_PEAK_FLOPS = H100.flops
 # (a) reduced models in float32 (TF32 off), TRAIN_SMALL_STEPS steps on the
 # card and on the CPU from the same weights and batches: each step's loss
 # within TRAIN_SMALL_LOSS_RTOL of the CPU's (the products sum in other
@@ -488,6 +515,23 @@ MESH_LM_POINT = 8
 MESH_LM_SEQ = 32
 MESH_LM_WAVES = 2
 MESH_GROWTH_SHARE = 0.01
+# Step 13's real meshed tail that step 14 counts: a group of this many
+# boundaries.
+ACCT_TAIL_BATCH = 4
+
+# Step accounting (step 14): granite-34b's tail report at the reference
+# benchmark's geometry (benchmarks/meshed_tail.py), which may allocate
+# less than ACCT_GROWTH_BYTES on the card; the dense band of
+# tests/test_torch_dryrun.py for the counted FLOPs of a train step against
+# analytic_step_flops; warm train steps timed; the dry-run CLI calls.
+ACCT_ARCH = "granite-34b"
+ACCT_BATCH, ACCT_SEQ = 8, 64
+ACCT_GROWTH_BYTES = 1 << 20
+ACCT_BAND = (0.95, 1.05)
+ACCT_TIMED_STEPS = 5
+ACCT_CLI = (("--arch", "olmo-1b", "--shape", "decode_32k"),
+            ("--arch", "olmo-1b", "--shape", "decode_32k", "--multi-pod"))
+ACCT_CLI_TIMEOUT_S = 240
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -3252,7 +3296,7 @@ def serve_train(torch, results):
     import tempfile
 
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-    from repro_torch.config import ServeConfig, TrainConfig
+    from repro_torch.config import ServeConfig, ShapeConfig, TrainConfig
     from repro_torch.core.decoupler import DecoupledPlan, DecoupledRunner
     from repro_torch.data.synthetic import ShardedLoader, make_batch
     from repro_torch.kernels.quantize import ops as qops
@@ -3290,7 +3334,8 @@ def serve_train(torch, results):
     check(all(t.device.type == "cuda" for t in _leaves(res.params)),
           "trained parameters left the card")
     step_ms = statistics.median(res.step_s[1:]) * 1e3
-    flops = 6.0 * n_params * tokens
+    flops = model.analytic_step_flops(
+        ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train"))
     bound_ms = flops / BF16_PEAK_FLOPS * 1e3
     m_bytes = sum(t.numel() * t.element_size()
                   for t in _leaves(res.opt_state.mu) + _leaves(
@@ -3521,8 +3566,6 @@ def serve_meshed(torch, results, base, params):
     """Step 13: the meshed cloud on the card, a mesh of one."""
     import gc
 
-    import torch.distributed as dist
-
     from repro_torch.config import JaladConfig
     from repro_torch.config.types import EDGE_TK1, EDGE_TX2, DeviceProfile
     from repro_torch.data.synthetic import ImageStream, make_batch
@@ -3652,7 +3695,12 @@ def serve_meshed(torch, results, base, params):
           f"{wall * 1e3:.1f} ms (fused tail {fused_wall * 1e3:.1f} ms), "
           f"again warm {warm['meshed'] * 1e3:.1f} ms (fused tail "
           f"{warm['fused'] * 1e3:.1f} ms)")
+    tail_count = count_meshed_tail(torch, model, fleet.mesh_worker)
+    print(f"  (c) one meshed tail of {ACCT_TAIL_BATCH} boundaries under "
+          f"the step counter (for step 14): {tail_count['flops']:.6e} "
+          f"FLOPs, {tail_count['argument_bytes']:,} argument bytes")
     report[MESH_LM_ARCH] = dict(
+        tail_count=tail_count,
         layers=MESH_LM_LAYERS, point=names[MESH_LM_POINT],
         params=model.param_count(), param_bytes=nbytes, draw_s=init_s,
         calibration_s=calib_s, growth_bytes=grew, requests=len(done),
@@ -3662,12 +3710,211 @@ def serve_meshed(torch, results, base, params):
     del fleet, fused_fleet, done, fused, server, lm_params
     gc.collect()
     torch.cuda.empty_cache()
-    dist.destroy_process_group()
+    # The group of one stays up: step 14 counts on the same mesh.
     print(f"meshed launches: {counts}")
     for name in ("fused_decode", "pc_decode"):
         check(counts[name] > 0, f"{name} never launched on the meshed path")
     results["meshed"] = dict(launches=counts, **report)
     return counts
+
+
+def count_meshed_tail(torch, model, worker) -> dict:
+    """The step counter over one tail of the meshed worker on real
+    weights: ``ACCT_TAIL_BATCH`` bfloat16 boundaries batch-sharded as the
+    worker places them, the worker's own tail at ``MESH_LM_POINT``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.dryrun import run_counted
+    from repro_torch.sharding.activation import constrain
+
+    x = torch.randn((ACCT_TAIL_BATCH, MESH_LM_SEQ, model.cfg.d_model),
+                    dtype=torch.bfloat16, device="cuda")
+    x = DTensor.from_local(x, worker.mesh, worker._batch_placements(),
+                           run_check=False)
+
+    def tail(p, b, e):
+        b = constrain(b, model.boundary_logical_axes(b.ndim))
+        return model.run_tail(p, b, MESH_LM_POINT, e)
+
+    with torch.no_grad():
+        _, count = run_counted(tail, (worker.params, x, None))
+    torch.cuda.synchronize()
+    return dict(flops=count.flops, argument_bytes=count.argument_bytes,
+                output_bytes=count.output_bytes, temp_bytes=count.temp_bytes,
+                bytes=count.bytes_accessed, ops=count.ops,
+                batch=ACCT_TAIL_BATCH, seq=MESH_LM_SEQ)
+
+
+def account_steps(torch, results):
+    """Step 14: the step accounting on the card's host (see the module
+    docstring); no kernel launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.dryrun import (
+        build_step,
+        count_fake_step,
+        place_args,
+        run_counted,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.meshed import aot_tail_report
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    clis = []
+    for argv in ACCT_CLI:
+        clis.append((argv, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    try:
+        out = dict(card=card_line())
+        mesh = make_host_mesh(device="cuda")
+
+        # (a) granite-34b's tail report, no weights.
+        model = build_model(get_config(ACCT_ARCH))
+        point = len(model.decoupling_points()) // 2
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        single = aot_tail_report(model, point, batch=ACCT_BATCH,
+                                 seq_len=ACCT_SEQ)
+        single_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        meshed = aot_tail_report(model, point, batch=ACCT_BATCH,
+                                 seq_len=ACCT_SEQ, mesh=mesh)
+        meshed_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - before
+        check(grew < ACCT_GROWTH_BYTES,
+              f"{ACCT_ARCH}'s tail report allocated {grew} B on the card")
+        check(single == meshed, f"tail reports differ: without a mesh "
+              f"{single}, on the mesh of one {meshed}")
+        cut = build_model(get_config(MESH_LM_ARCH).replace(
+            num_layers=MESH_LM_LAYERS))
+        real = results["meshed"][MESH_LM_ARCH]["tail_count"]
+        cut_rep = aot_tail_report(cut, MESH_LM_POINT, batch=ACCT_TAIL_BATCH,
+                                  seq_len=MESH_LM_SEQ, mesh=mesh)
+        check(cut_rep["flops_per_device"] == real["flops"],
+              f"the fake tail counts {cut_rep['flops_per_device']} FLOPs, "
+              f"step 13's real tail {real['flops']}")
+        out["tail"] = dict(arch=ACCT_ARCH, point=point, batch=ACCT_BATCH,
+                           seq=ACCT_SEQ, report=single, single_s=single_s,
+                           meshed_s=meshed_s, growth_bytes=grew,
+                           cut_report=cut_rep, cut_real=real)
+        print(f"  (a) {ACCT_ARCH} ({model.param_count():,} parameters) "
+              f"tail report at {model.decoupling_points()[point]}, "
+              f"{ACCT_BATCH} x {ACCT_SEQ}: {single}; in {single_s:.2f} s "
+              f"without a mesh, {meshed_s:.2f} s on the mesh of one, every "
+              f"key equal; {grew} B allocated on the card. At "
+              f"{MESH_LM_LAYERS} layers, {ACCT_TAIL_BATCH} x {MESH_LM_SEQ}: "
+              f"{cut_rep['flops_per_device']:.6e} FLOPs, == step 13's real "
+              f"meshed tail")
+
+        # (b) full-width olmo-1b: build_step's train step on the mesh.
+        lm = build_model(get_config(TRAIN_ARCH))
+        shape = ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=100, remat="none")
+        t1 = time.perf_counter()
+        fake = count_fake_step(lm, shape, tc, mesh)
+        fake_s = time.perf_counter() - t1
+        step_fn, abstract, in_sh = build_step(lm, shape, tc, mesh)
+        args = place_args(abstract, in_sh, mesh, "cuda")
+        weights = lm.init(0, torch.device("cuda"), draw="device")
+        tokens = torch.randint(0, lm.cfg.vocab_size,
+                               tuple(args[2]["tokens"].shape), device="cuda",
+                               dtype=torch.int32)
+        with torch.no_grad():
+            for dst, src in zip(_leaves(args[0]), _leaves(weights)):
+                dst.to_local().copy_(src)
+            for t in _leaves(args[1]):
+                t.to_local().zero_()
+            args[2]["tokens"].to_local().copy_(tokens)
+            plain_loss = float(lm.loss_fn(weights, {"tokens": tokens}))
+        del weights
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (_, _, metrics), count = run_counted(step_fn, args)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t1
+        loss = metrics["loss"]
+        loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                     else loss)
+        check(abs(loss - plain_loss) <= TRAIN_SMALL_LOSS_RTOL * abs(
+            plain_loss), f"the DTensor step's loss {loss!r}, Model.loss_fn's "
+              f"on the same weights and batch {plain_loss!r}")
+        check(count.flops == fake.flops,
+              f"the real train step counts {count.flops} FLOPs, the fake "
+              f"dry run {fake.flops}")
+        analytic = lm.analytic_step_flops(shape, block_remat=False)
+        ratio = count.flops / analytic
+        check(ACCT_BAND[0] <= ratio <= ACCT_BAND[1],
+              f"counted / analytic FLOPs {ratio:.4f} outside {ACCT_BAND}")
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        # (c) ends before the timed steps: they run with no other work on
+        # the host (the step is bound by its host dispatch).
+        cli = [_finish(*c) for c in clis]
+        times = []
+        for _ in range(ACCT_TIMED_STEPS):
+            t1 = sync_clock(torch)
+            with implicit_replication():
+                step_fn(*args)
+            times.append(sync_clock(torch) - t1)
+        step_s = statistics.median(times)
+        mfu = analytic / (step_s * H100.flops)
+        card = card_line()
+        out["train"] = dict(
+            arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            loss=loss, plain_loss=plain_loss,
+            counted_flops=count.flops, fake_flops=fake.flops,
+            analytic_flops=analytic, ratio=ratio,
+            counted_bytes=count.bytes_accessed, fake_bytes=fake.bytes_accessed,
+            argument_bytes=count.argument_bytes, ops=count.ops,
+            fake_count_s=fake_s, counted_step_s=counted_s,
+            step_s=times, median_step_s=step_s, mfu=mfu, card=card)
+        print(f"  (b) {TRAIN_ARCH} train step (build_step, mesh of one, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16): counted "
+              f"{count.flops:.6e} FLOPs == the fake dry run's (counted in "
+              f"{fake_s:.1f} s), {ratio:.4f} of analytic_step_flops "
+              f"{analytic:.6e}; loss {loss!r} == Model.loss_fn's "
+              f"{plain_loss!r} within {TRAIN_SMALL_LOSS_RTOL}"
+              f"; the counted step took {counted_s:.1f} s; "
+              f"median of {ACCT_TIMED_STEPS} warm steps "
+              f"{step_s * 1e3:.1f} ms, mfu {mfu:.4f} ({card})")
+        del args
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        for _, _, proc in clis:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for argv, rc, secs, log in cli:
+        lines = [ln for ln in log.splitlines()
+                 if ln.startswith(("==", "   ")) or "combinations" in ln]
+        print(f"  (c) python -m repro_torch.launch.dryrun {' '.join(argv)}: "
+              f"rc {rc} in {secs:.1f} s")
+        for ln in lines:
+            print(f"      {ln.strip()}")
+        check(rc == 0, f"dryrun {' '.join(argv)} exited {rc}:\n{log[-3000:]}")
+        out.setdefault("cli", []).append(dict(argv=list(argv), rc=rc,
+                                              seconds=secs, record=lines))
+    results["accounting"] = out
+
+
+def _finish(argv, start, proc):
+    """(argv, exit code, seconds, output) of a dry-run CLI subprocess."""
+    try:
+        log, _ = proc.communicate(timeout=ACCT_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+    return argv, proc.returncode, time.perf_counter() - start, log
 
 
 def _leaves(tree):
@@ -3743,6 +3990,7 @@ def main(argv=None) -> int:
     mm = step("multimodal lm serving", serve_mm_lm)
     trained = step("training", serve_train)
     meshed = step("meshed cloud", serve_meshed, base, params)
+    step("step accounting", account_steps)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
              "threelaunch": k6_path, "channel_removal": removal,
              "three_tier": three, **lm,

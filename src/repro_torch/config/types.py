@@ -154,6 +154,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Mesh
 # ---------------------------------------------------------------------------
 
@@ -233,6 +254,21 @@ EDGE_TK1 = DeviceProfile("nvidia-tegra-k1", 300e9, 1.1176)
 # Mid-tier edge server (three-tier topology): a desktop-class GPU racked at
 # the basestation/MEC site, between the Tegra devices and the 1080Ti cloud.
 EDGE_SERVER_1060 = DeviceProfile("nvidia-1060-edge-server", 4.4e12, 2.1761)
+
+# NVIDIA H100 SXM5 80 GB at 700 W, the port's roofline target (the
+# reference divides by its TPU's figures). Every figure is NVIDIA's H100
+# data sheet's, SXM column:
+#   bf16 Tensor Core, dense (the sheet's 1,979 TFLOP/s is with sparsity);
+#   HBM3 bandwidth 3.35 TB/s; 80 GB of HBM3;
+#   NVLink 900 GB/s, both directions together: 450 GB/s each way.
+# The roofline prices every mesh axis at the NVLink rate, as the reference
+# prices every axis at one link rate. A mesh of more than eight H100s spans
+# nodes joined by slower InfiniBand links (a 16x16 mesh: 32 nodes of
+# eight), so there the collective term is a lower bound.
+H100 = DeviceProfile("nvidia-h100-sxm5-80gb", 989e12, 1.0)
+H100_HBM_BW = 3.35e12         # bytes/s
+H100_HBM_BYTES = 80e9         # bytes
+H100_NVLINK_BW = 450e9        # bytes/s per direction
 
 
 @dataclass(frozen=True)

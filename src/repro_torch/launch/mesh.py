@@ -36,9 +36,9 @@ def init_process_group(device: DeviceLike = None, *, store=None,
     hanging."""
     import torch.distributed as dist
 
-    dev = resolve_device(device)
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
+    dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     timeout = datetime.timedelta(seconds=timeout_s)
     from_env = store is None and rank is None and "RANK" in os.environ
@@ -77,9 +77,20 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise RuntimeError(
             f"mesh {shape} needs {need} ranks, have {world}: start one "
             f"process a device under torchrun")
-    return DeviceMesh(resolve_device(device).type,
+    return DeviceMesh(_mesh_device_type(device),
                       torch.arange(need).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def _mesh_device_type(device: DeviceLike) -> str:
+    """The mesh's device type. A ``fake`` world (the dry run,
+    ``launch/dryrun.py``) holds fake tensors only, so its ``cuda`` needs
+    no card."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device("cuda" if device is None else device).type
+    return resolve_device(device).type
 
 
 def make_host_mesh(model_axis: Optional[int] = None,

@@ -33,11 +33,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config.types import ModelConfig
+from repro_torch.config.types import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.models.init import abstractify, logical_axes, materialize
+from repro_torch.models.init import (
+    abstractify,
+    logical_axes,
+    materialize,
+    torch_dtype,
+)
 from repro_torch.models.layers.mamba2 import mamba_dims
 
 # Families the port builds; the others raise in build_model.
@@ -226,6 +231,11 @@ class Model:
         return tf_lib.init_caches(self.cfg, batch, cache_len,
                                   resolve_device(device), enc_len)
 
+    # ------------------------------------------------------- input specs
+    def cache_len_for(self, seq_len: int) -> int:
+        w = tf_lib.effective_window(self.cfg, seq_len)
+        return min(seq_len, w) if w else seq_len
+
     def enc_len_for(self, seq_len: int) -> int:
         return seq_len // 4 if self.cfg.is_encdec else 0
 
@@ -233,6 +243,62 @@ class Model:
         if self.cfg.family != "vlm":
             return 0
         return min(self.cfg.num_vision_tokens, max(seq_len // 4, 16))
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """The batch of one step of ``shape`` as ``meta`` tensors (shapes
+        and dtypes, no allocation), for the dry run.
+
+        train/prefill: the whole batch of sequences (and the modality
+        stubs); decode: one new token a sequence, the position, and the
+        caches of ``init_caches`` (built on ``meta``), whose shared ``'A'``
+        segments carry a layer axis of 1 (see ``cache_logical_axes``)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        i32 = torch.int32
+        act = torch_dtype(cfg.dtype)
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device=meta)
+
+        if cfg.family == "cnn":
+            return {"images": spec((b, 3, cfg.image_size, cfg.image_size),
+                                   torch.float32),
+                    "labels": spec((b,), i32)}
+        if shape.mode in ("train", "prefill"):
+            batch: Dict[str, Any] = {}
+            text_len = s
+            if cfg.family == "vlm":
+                n_vis = self.vis_len_for(s)
+                text_len = s - n_vis
+                batch["vision_embeds"] = spec((b, n_vis, cfg.d_model), act)
+            batch["tokens"] = spec((b, text_len), i32)
+            if cfg.is_encdec:
+                batch["src_frames"] = spec((b, self.enc_len_for(s),
+                                            cfg.d_model), act)
+            return batch
+        # decode: one token + caches of length cache_len_for(seq).
+        caches = tf_lib.init_caches(cfg, b, self.cache_len_for(s), meta,
+                                    self.enc_len_for(s))
+        return {"tokens": spec((b, 1), i32), "pos": spec((), i32),
+                "caches": caches}
+
+    def batch_logical_axes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Logical-axis tree matching ``input_specs(shape)``, consumed by
+        :func:`repro_torch.sharding.rules.shardings_for_specs`."""
+        cfg = self.cfg
+        if cfg.family == "cnn":
+            return {"images": ("batch", None, None, None),
+                    "labels": ("batch",)}
+        if shape.mode in ("train", "prefill"):
+            axes: Dict[str, Any] = {"tokens": ("batch", "seq")}
+            if cfg.family == "vlm":
+                axes["vision_embeds"] = ("batch", "seq", "embed")
+            if cfg.is_encdec:
+                axes["src_frames"] = ("batch", "enc_seq", "embed")
+            return axes
+        return {"tokens": ("batch", None), "pos": (),
+                "caches": tf_lib.cache_logical_axes(cfg)}
 
     # -------------------------------------- token streaming (JALAD decode)
     def _check_token_split(self) -> None:
@@ -294,6 +360,72 @@ class Model:
             n = len(self.decoupling_points())
             return [batch * seq_len * self.cfg.d_model * bytes_per_val] * n
         return cnn_lib.feature_bytes(self.layers, batch, bytes_per_val)
+
+    # ------------------------------------------------------ step accounting
+    def model_flops(self, tokens_or_samples: int) -> float:
+        """6·N·D (dense) / 6·N_active·D (MoE); CNN: 2·FMACs."""
+        if not self.is_lm:
+            total = sum(cnn_lib.layer_fmacs(self.layers))
+            return 2.0 * total * tokens_or_samples
+        return 6.0 * self.active_param_count() * tokens_or_samples
+
+    def analytic_step_flops(self, shape: ShapeConfig,
+                            block_remat: bool = False) -> float:
+        """Matrix-product FLOPs of one step of this shape (global, all
+        devices), the reference's count in its order of operations, so
+        both packages give the same float.
+
+        fwd = matmul 2*FMACs + attention quadratic (the full score matrix,
+        the masked half too; windowed: S*W); train = fwd * 3 (the backward
+        2x), +1 fwd if per-block remat recomputes the forward."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if not self.is_lm:
+            per = sum(cnn_lib.layer_fmacs(self.layers))
+            fwd = 2.0 * per * b
+            return fwd * (4.0 if block_remat else 3.0) \
+                if shape.mode == "train" else fwd
+
+        pattern = tf_lib.default_pattern(cfg)
+        n_attn = sum(1 for k in pattern if k in ("d", "e", "c"))
+        if cfg.shared_attention_every:
+            n_attn += len(pattern) // cfg.shared_attention_every
+        per_block = _block_fmacs_per_token(cfg)
+        if shape.mode in ("train", "prefill"):
+            tokens = b * s
+            fwd = 2.0 * sum(per_block) * tokens
+            w = tf_lib.effective_window(cfg, s)
+            kv_len = min(s, w) if w else s
+            fwd += 4.0 * b * cfg.num_heads * s * kv_len * cfg.head_dim_ \
+                * n_attn
+            if cfg.is_encdec:
+                enc_s = self.enc_len_for(s)
+                enc_tokens = b * enc_s
+                enc_fmacs = (cfg.d_model * (cfg.num_heads
+                                            + 2 * cfg.num_kv_heads)
+                             * cfg.head_dim_
+                             + cfg.num_heads * cfg.head_dim_ * cfg.d_model
+                             + 2 * cfg.d_model * cfg.d_ff)
+                fwd += 2.0 * enc_fmacs * enc_tokens * cfg.num_encoder_layers
+                fwd += 4.0 * b * cfg.num_heads * enc_s * enc_s \
+                    * cfg.head_dim_ * cfg.num_encoder_layers
+                # cross attention over the encoder's keys
+                fwd += 4.0 * b * cfg.num_heads * s * enc_s * cfg.head_dim_ \
+                    * len(pattern)
+            fwd += 2.0 * tokens * cfg.d_model * cfg.vocab_size   # logits
+            if shape.mode == "prefill":
+                return fwd
+            return fwd * (4.0 if block_remat else 3.0)
+
+        # decode: one token, attention reads the whole cache.
+        fwd = 2.0 * sum(per_block) * b
+        fwd += 4.0 * b * cfg.num_heads * self.cache_len_for(s) \
+            * cfg.head_dim_ * n_attn
+        if cfg.is_encdec:
+            fwd += 4.0 * b * cfg.num_heads * self.enc_len_for(s) \
+                * cfg.head_dim_ * len(pattern)
+        fwd += 2.0 * b * cfg.d_model * cfg.vocab_size
+        return fwd
 
 
 def _block_fmacs_per_token(cfg: ModelConfig) -> List[float]:

@@ -45,6 +45,7 @@ from repro_torch.models.layers.moe import (
     moe_spec,
 )
 from repro_torch.models.layers.norms import apply_norm, norm_spec
+from repro_torch.sharding.activation import like_layout, on_batch_shard
 
 _ATTN = ("d", "e", "A")     # attention, then SwiGLU ('e': the experts);
                             # 'A' shares its weights
@@ -176,6 +177,44 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
     return _kv_cache_entry(cfg, batch, cache_len, dtype, device)
 
 
+def block_cache_axes(kind: str, cfg: ModelConfig = None):
+    """Logical axis names for each cache entry of ``init_block_cache``
+    (same tree structure; tuples align with array dims). Consumed by the
+    sharding resolver for the dry run's inputs."""
+    kv4 = ("batch", "kv_seq", "kv_heads", "head_dim")
+    kv3 = ("batch", "kv_seq", "kv_heads")
+    q8 = cfg is not None and cfg.kv_cache_bits == 8
+    if kind in ("d", "e", "A"):
+        if q8:
+            return {"k": kv4, "ks": kv3, "v": kv4, "vs": kv3}
+        return {"k": kv4, "v": kv4}
+    if kind == "m":
+        return {
+            "ssm": ("batch", "heads", "ssm_state", "head_dim"),
+            "conv": ("batch", None, "conv_out"),
+        }
+    if kind == "l":
+        return {
+            "C": ("batch", "heads", "head_dim", None),
+            "n": ("batch", "heads", "head_dim"),
+            "m": ("batch", "heads"),
+            "conv": ("batch", None, "ssm_in"),
+        }
+    if kind == "s":
+        hd3 = ("batch", "heads", "head_dim")
+        return {"c": hd3, "n": hd3, "hid": hd3, "m": hd3,
+                "conv": ("batch", None, None)}
+    if kind == "c":
+        enc4 = ("batch", "enc_seq", "kv_heads", "head_dim")
+        if q8:
+            return {"k": kv4, "ks": kv3, "v": kv4, "vs": kv3,
+                    "xk": enc4, "xv": enc4}
+        return {"k": kv4, "v": kv4, "xk": enc4, "xv": enc4}
+    if kind == "E":
+        return {}
+    raise ValueError(kind)
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence application
 # ---------------------------------------------------------------------------
@@ -235,7 +274,12 @@ def _mlp(kind: str, params, x: torch.Tensor, cfg: ModelConfig
     ``'c'`` block, SwiGLU otherwise (no routing: None)."""
     h2 = apply_norm(_norm_kind(kind, cfg), params["ln2"], x)
     if kind == "e":
-        return moe_forward(params["mlp"], h2, cfg)
+        # The dispatch's buffer views and index copies have no DTensor
+        # rule that keeps a sharded buffer: on a mesh the experts run on
+        # each rank's batch shard (capacity is per row and group, so a
+        # shard routes as the whole batch does), weights gathered at use.
+        return on_batch_shard(lambda p, h: moe_forward(p, h, cfg),
+                              params["mlp"], h2)
     if kind in _ENCDEC:
         return apply_gelu_mlp(params["mlp"], h2), None
     return apply_swiglu(params["mlp"], h2), None
@@ -256,12 +300,12 @@ def _build_kv_cache(k, v, s, cache_len, cfg: ModelConfig):
 def _recurrent_seq(kind: str, params, h: torch.Tensor, cfg: ModelConfig):
     """A recurrent layer over a sequence: (output, final state). Mamba2's
     is the reference's ``_mamba_seq_with_state`` (chunked SSD on a length
-    of whole chunks past one, sequential otherwise)."""
-    if kind == "m":
-        return mamba_lib.mamba2_seq(params, h, cfg)
-    if kind == "l":
-        return xlstm_lib.apply_mlstm(params, h, cfg)
-    return xlstm_lib.apply_slstm(params, h, cfg)
+    of whole chunks past one, sequential otherwise). On a mesh it runs on
+    each rank's batch shard, weights gathered at use: DTensor refuses to
+    unflatten a head dim split wider than the heads (``aten.view``)."""
+    fn = {"m": mamba_lib.mamba2_seq, "l": xlstm_lib.apply_mlstm,
+          "s": xlstm_lib.apply_slstm}[kind]
+    return on_batch_shard(lambda p, x: fn(p, x, cfg), params, h)
 
 
 # ---------------------------------------------------------------------------
@@ -311,20 +355,24 @@ def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,
     position to mask by, so rows whose ``live`` flag is off keep every
     leaf (the conv window and ``m`` included) exactly as it was."""
     h = apply_norm(cfg.norm_kind, params["ln"], x)
-    p = params[_RECURRENT[kind]]
     if kind == "m":
-        y, state = mamba_lib.decode_mamba2(
-            p, h, mamba_lib.MambaState(**cache), cfg)
-    elif kind == "l":
-        y, state = xlstm_lib.apply_mlstm(
-            p, h, cfg, xlstm_lib.MLSTMState(**cache))
+        def step(p, hx, st):
+            return mamba_lib.decode_mamba2(p, hx, st, cfg)
+        state = mamba_lib.MambaState(**cache)
     else:
-        y, state = xlstm_lib.apply_slstm(
-            p, h, cfg, xlstm_lib.SLSTMState(**cache))
+        apply = xlstm_lib.apply_mlstm if kind == "l" else \
+            xlstm_lib.apply_slstm
+        state = (xlstm_lib.MLSTMState if kind == "l" else
+                 xlstm_lib.SLSTMState)(**cache)
+
+        def step(p, hx, st):
+            return apply(p, hx, cfg, st)
+    # On a mesh: each rank's batch shard, as in _recurrent_seq.
+    y, state = on_batch_shard(step, params[_RECURRENT[kind]], h, state)
     for k, new in state._asdict().items():
         buf = cache[k]
         if ctx.live is not None:
             keep = ctx.live.reshape((-1,) + (1,) * (new.ndim - 1))
             new = torch.where(keep, new, buf)
-        buf.copy_(new)
+        buf.copy_(like_layout(new, buf))
     return x + y, cache

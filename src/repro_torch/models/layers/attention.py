@@ -14,6 +14,7 @@ Not ported: the flash backward (no training in the port).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,7 +23,12 @@ import torch
 from repro_torch.config.types import ModelConfig
 from repro_torch.models.init import spec
 from repro_torch.models.layers import rope as rope_lib
-from repro_torch.sharding.activation import constrain
+from repro_torch.sharding.activation import (
+    _dtensor_module,
+    constrain,
+    local_view,
+    shard_range,
+)
 
 _NEG_INF = -1e30
 _QHEADS = ("batch", "seq", "heads", "head_dim")
@@ -104,6 +110,42 @@ def _split_gqa(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     """(B,S,H,K) -> (B,S,kv,group,K)."""
     b, s, h, k = q.shape
     return q.reshape(b, s, kv_heads, h // kv_heads, k)
+
+
+def _on_head_shards(core, q, k, v, *rows):
+    """``core(q, k, v, *rows)``; on a mesh, run on each rank's shard of
+    the batch and the kv heads, the dims attention never mixes, and
+    return a DTensor sharded the same way. DTensor's rules for the core's
+    products would merge sharded dims (some versions refuse to flatten a
+    sharded dim, ``aten.view``; others split a head group unevenly or
+    plan strided shards). The layout is ``k``'s batch and kv-head splits;
+    any other split (a cache on ``kv_seq``, heads split wider than the kv
+    heads) is gathered first. ``rows`` are per-row tensors (B,), whole on
+    every rank."""
+    mod = _dtensor_module(k) or _dtensor_module(q)
+    if mod is None:
+        return core(q, k, v, *rows)
+    mesh = (k if _dtensor_module(k) else q).device_mesh
+    ref = k.placements if _dtensor_module(k) else [mod.Replicate()] * mesh.ndim
+    want = [p if p.is_shard() and p.dim in (0, 2) else mod.Replicate()
+            for p in ref]
+
+    def laid(x):
+        if _dtensor_module(x) is None:
+            x = mod.DTensor.from_local(x, mesh, [mod.Replicate()] * mesh.ndim,
+                                       run_check=False)
+        return x if list(x.placements) == want else x.redistribute(mesh, want)
+
+    q, k, v = laid(q), laid(k), laid(v)
+    b0, nb = shard_range(k, 0)
+    out = core(local_view(q), local_view(k), local_view(v),
+               *[_whole(r)[b0:b0 + nb] for r in rows])
+    return mod.DTensor.from_local(out, mesh, want, run_check=False)
+
+
+def _whole(t):
+    """A DTensor's whole value on every rank, or the tensor itself."""
+    return t.full_tensor() if _dtensor_module(t) is not None else t
 
 
 def _mask(sq: int, sk: int, q_offset, causal: bool, window: int,
@@ -196,8 +238,12 @@ def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Dense attention up to ``dense_threshold`` query positions (or for a
     causal call whose query and key lengths differ), chunked above."""
     if q.shape[1] <= dense_threshold or (causal and q.shape[1] != k.shape[1]):
-        return full_attention(q, k, v, causal=causal, window=window)
-    return chunked_attention(q, k, v, causal=causal, window=window)
+        core = functools.partial(full_attention, causal=causal,
+                                 window=window)
+    else:
+        core = functools.partial(chunked_attention, causal=causal,
+                                 window=window)
+    return _on_head_shards(core, q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +298,8 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
                 live: Optional[torch.Tensor]) -> torch.Tensor:
     """``cache[b, pos[b] % S_c] = new[b, 0]`` for every row b (those with
     ``live[b]`` only, when given), in place; returns ``cache``."""
+    if _dtensor_module(cache) is not None:
+        return _write_rows_sharded(cache, new, pos, live)
     rows = torch.arange(cache.shape[0], device=cache.device)
     slot = torch.remainder(pos, cache.shape[1])
     new = new[:, 0].to(cache.dtype)
@@ -259,6 +307,37 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         keep = live.reshape((-1,) + (1,) * (new.ndim - 1))
         new = torch.where(keep, new, cache[rows, slot])
     cache[rows, slot] = new
+    return cache
+
+
+def _write_rows_sharded(cache, new, pos, live):
+    """:func:`_write_rows` into a sharded cache (B, S_c, ...), on each
+    rank's local shard: DTensor refuses an in-place ``index_put_`` into a
+    sharded tensor. The new row takes the cache's layout without the
+    sequence dim; a rank writes the rows of its batch shard whose slot
+    falls in its shard of the sequence (a cache split on ``kv_seq``), and
+    leaves the others as they were."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    want = []
+    for p in cache.placements:
+        if p.is_shard() and p.dim != 1:
+            want.append(Shard(p.dim - 1 if p.dim > 1 else 0))
+        else:
+            want.append(Replicate())
+    row = local_view(new[:, 0].to(cache.dtype).redistribute(mesh, want))
+    local = cache.to_local()
+    b0, nb = shard_range(cache, 0)
+    s0, ns = shard_range(cache, 1)
+    slot = torch.remainder(_whole(pos), cache.shape[1])[b0:b0 + nb]
+    owned = (slot >= s0) & (slot < s0 + ns)
+    if live is not None:
+        owned = owned & _whole(live)[b0:b0 + nb]
+    rows = torch.arange(nb, device=local.device)
+    at = torch.clamp(slot - s0, 0, ns - 1)
+    keep = owned.reshape((-1,) + (1,) * (row.ndim - 1))
+    local[rows, at] = torch.where(keep, row, local[rows, at])
     return cache
 
 
@@ -282,6 +361,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      length: torch.Tensor) -> torch.Tensor:
     """q: (B, 1, H, hd); caches (B, S_c, kv, hd); length: (B,) valid
     positions of each row, the new one included."""
+    return _on_head_shards(_decode_attention, q, k_cache, v_cache, length)
+
+
+def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor,
+                      length: torch.Tensor) -> torch.Tensor:
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
     s_c = k_cache.shape[1]

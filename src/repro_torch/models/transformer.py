@@ -38,7 +38,11 @@ from repro_torch.config.types import ModelConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.init import spec, stack_tree, torch_dtype
 from repro_torch.models.layers.norms import apply_norm, norm_spec
-from repro_torch.sharding.activation import constrain
+from repro_torch.sharding.activation import (
+    constrain,
+    gather_dim,
+    on_batch_shard,
+)
 
 _HID = ("batch", "seq", "embed")   # layer-boundary activation layout
 
@@ -180,7 +184,11 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    # On a mesh the lookup runs on each rank's batch shard, the table
+    # gathered at use: some DTensor versions have no rule for an index
+    # whose rows are split over two mesh dims ("pod" and "data").
+    x = on_batch_shard(lambda p, t: p["embed"][t],
+                       {"embed": params["embed"]}, tokens)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
@@ -393,6 +401,17 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     return _init_cache_list(cfg, batch, cache_len,
                             [(sj, s.count) for sj, s in
                              enumerate(segment_plan(cfg))], device, enc_len)
+
+
+def cache_logical_axes(cfg: ModelConfig) -> List[Any]:
+    """Logical-axis tree mirroring ``init_caches`` output structure: each
+    segment's entry axes behind a leading ``"layers"``. A shared ``'A'``
+    segment's cache has a layer axis of 1 here (``init_caches``), so its
+    axes carry ``"layers"`` too, where the reference's unstacked entry has
+    none."""
+    return [{k: ("layers",) + a
+             for k, a in blk.block_cache_axes(seg.kind, cfg).items()}
+            for seg in segment_plan(cfg)]
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
@@ -611,7 +630,10 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     """Causal LM loss in float32; ``text_offset`` skips modality-prefix
     positions (a vlm's vision tokens)."""
     lg = logits[:, text_offset:, :]
-    pred = lg[:, :-1].float()
+    # On a mesh the vocab is gathered at use: DTensor's gather over a
+    # vocab-sharded dim keeps a mask buffer on its cached placement, which
+    # breaks once that placement is reused.
+    pred = gather_dim(lg[:, :-1].float(), -1)
     tgt = tokens[:, 1:].long()
     logz = torch.logsumexp(pred, dim=-1)
     gold = torch.gather(pred, -1, tgt[..., None])[..., 0]

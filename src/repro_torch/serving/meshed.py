@@ -305,9 +305,70 @@ class MeshedCloudWorker:
 
 def aot_tail_report(model: Model, point: int, *, batch: int = 8,
                     seq_len: int = 64, mesh=None) -> Dict[str, float]:
-    """The reference's ahead-of-time tail analysis (per-device FLOPs and
-    memory of the compiled tail) reads ``launch/hlo_analysis.py``, which
-    is not ported."""
-    raise NotImplementedError(
-        "aot_tail_report: needs the compile-only analysis of "
-        "launch/hlo_analysis.py, which is not ported yet")
+    """Account the cloud tail at ``point`` ahead of time on fake tensors
+    (no parameter is allocated, so this works for configs whose weights
+    fit no card: granite-34b is 94.5 GB in bf16) and return its per-device
+    FLOPs and memory, the reference's five keys. With a mesh the
+    parameters are placed through the rule table and the boundary enters
+    batch-sharded on "data", the serving worker's layout; without one it
+    is the whole tail on one device (``launch/dryrun.py``
+    ``fake_device``; fake tensors need no card).
+
+    The head runs on fake tensors first to give the boundary and the
+    extras. The tail runs once under
+    :class:`~repro_torch.launch.step_analysis.StepCounter`:
+    ``flops_per_device`` counts the local shards' matrix products, so
+    ``single.flops / sharded.flops`` is the parallel fraction the mesh
+    achieves; ``argument_bytes_per_device`` counts the parameters the
+    tail reads and the boundary (the reference's ``keep_unused=False``
+    pruning), the footprint to check against a card's memory;
+    ``temp_bytes_per_device`` is the unfused peak of the tail's
+    intermediates."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import (
+        fake_device,
+        fake_mode,
+        place_args,
+        run_counted,
+    )
+    from repro_torch.launch.step_analysis import place_abstract
+
+    dev = fake_device() if mesh is None else torch.device(mesh.device_type)
+    specs = model.abstract_params()
+    raw = make_batch(model.cfg, batch, seq_len, seed=0)
+    with fake_mode():
+        params = place_abstract(specs, None, None, dev)
+        fake_batch = {k: torch.empty(np.shape(v), dtype=torch.from_numpy(
+            np.asarray(v)).dtype, device=dev) for k, v in raw.items()}
+        head = model.run_head(params, fake_batch, point)
+        boundary, extras = head if isinstance(head, tuple) else (head, None)
+        del params
+
+        def tail(p, x, e):
+            x = constrain(x, model.boundary_logical_axes(x.ndim))
+            return model.run_tail(p, x, point, e)
+
+        if mesh is None:
+            args = (place_abstract(specs, None, None, dev), boundary, extras)
+        else:
+            from torch.distributed.tensor import Replicate, Shard
+
+            rep = [Replicate()] * mesh.ndim
+            bsh = [Shard(0) if name == "data" and mesh.size(j) > 1
+                   else Replicate()
+                   for j, name in enumerate(mesh.mesh_dim_names)]
+            args = place_args(
+                (specs, boundary, extras),
+                (param_shardings(model, mesh), bsh,
+                 tree_map(lambda a: rep, extras)
+                 if extras is not None else None),
+                mesh, dev)
+        with torch.no_grad():
+            _, count = run_counted(tail, args)
+    return {
+        "n_devices": 1 if mesh is None else mesh_size(mesh),
+        "flops_per_device": float(count.flops),
+        "argument_bytes_per_device": float(count.argument_bytes),
+        "temp_bytes_per_device": float(count.temp_bytes),
+        "output_bytes_per_device": float(count.output_bytes),
+    }

@@ -220,10 +220,10 @@ def test_batched_rows_at_own_positions_equal_batch_one():
 def test_unported_families_raise():
     """Every family of the reference builds now, vlm and audio included,
     with every block kind, and the meshed cloud serves: a fleet built with
-    ``cloud_mesh`` (a one-rank host mesh) answers its requests. What the
-    port still leaves out raises and names its module: ``aot_tail_report``
-    needs ``launch/hlo_analysis.py``. The fleet's token streams and the
-    three-tier streaming terms are ported and no longer raise."""
+    ``cloud_mesh`` (a one-rank host mesh) answers its requests, and
+    ``aot_tail_report`` returns its report (``launch/step_analysis.py``).
+    The fleet's token streams and the three-tier streaming terms are
+    ported and no longer raise."""
     import types
 
     from repro_torch.config import JaladConfig, ModelConfig
@@ -274,9 +274,14 @@ def test_unported_families_raise():
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
-    with pytest.raises(NotImplementedError,
-                       match=r"launch/hlo_analysis\.py"):
-        meshed.aot_tail_report(srv.engine.model, 0)
+    # The ahead-of-time tail report is ported: the reference's five keys.
+    rep = meshed.aot_tail_report(srv.engine.model, 0)
+    assert list(rep) == ["n_devices", "flops_per_device",
+                         "argument_bytes_per_device", "temp_bytes_per_device",
+                         "output_bytes_per_device"]
+    assert rep["n_devices"] == 1
+    assert rep["flops_per_device"] > 0
+    assert rep["argument_bytes_per_device"] > 0
     # The streaming hooks run: an empty fleet has no stream to step.
     idle = types.SimpleNamespace(stream_sessions=[], cloud_groups=[])
     assert fleet.FleetServer.step_streams(idle) == 0

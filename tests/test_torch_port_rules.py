@@ -48,6 +48,9 @@ TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.training.loop",
 MESH_MODULES = ("repro_torch.sharding", "repro_torch.sharding.rules",
                 "repro_torch.sharding.activation", "repro_torch.launch.mesh",
                 "repro_torch.serving.meshed")
+# The step accounting and the dry run.
+DRYRUN_MODULES = ("repro_torch.launch.dryrun",
+                  "repro_torch.launch.step_analysis")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -70,7 +73,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert int(out[0]) >= 84          # every module of the port was imported
     assert out[1].strip() == "[]"
     assert set(LM_MODULES + SSM_MODULES + CORE_MODULES + MM_MODULES
-               + TRAIN_MODULES + MESH_MODULES) <= set(out[2].strip().split(","))
+               + TRAIN_MODULES + MESH_MODULES + DRYRUN_MODULES) <= \
+        set(out[2].strip().split(","))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
