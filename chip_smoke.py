@@ -216,7 +216,16 @@ NVIDIA card.
    ``seg0_d7``, 8 bits, bitpack (its K1 and K2 launches counted as the
    ``train_serve`` path, the counters set to 0 just before and read just
    after) equal to the trained weights' in memory; (e) one more train
-   step under ``torch.profiler``: device kernels, device time, busy share.
+   step under ``torch.profiler``: device kernels, device time, busy share;
+   (f) train_4k's sequence length: ``chunked_attention``'s gradients at
+   ``LONG_ATTN`` (bfloat16 and float32) against ``full_attention``'s
+   autograd ones within ``LONG_ATTN_SHARE``, with the bytes one call saves
+   for its backward beside those of autograd through the forward loop;
+   then ``train()`` on fresh full-width olmo-1b weights at ``LONG_BATCH``
+   x ``LONG_SEQ`` tokens, remat "none", ``LONG_STEPS`` steps: finite
+   losses, a peak inside the card's 80 GB, the median step after the
+   warm-up and ``mfu`` on ``analytic_step_flops``; one more step under
+   ``torch.profiler``, as (e).
 13. The meshed cloud on the card as a mesh of one (``make_host_mesh``:
    ("data", "model") = (1, 1) over an ``nccl`` group of one): (a) the
    sharded bitpack and Huffman-codes decodes of step 3's ``stem_pool``
@@ -258,8 +267,17 @@ NVIDIA card.
    decode_32k``, and the same with ``--multi-pod``, each in a subprocess
    started at the step's start and waited for before (b)'s timed steps,
    which so run with no other work on the host: each must exit 0 and
-   print its record; their seconds.
-15. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
+   print its record; their seconds. (d) ``scripts/hillclimb_torch.py``
+   on the first CLI's combination under each of ``ACCT_HILLCLIMB``, in
+   subprocesses started with (c)'s: the baseline's record equals the
+   first CLI's key for key (but the count's seconds).
+15. The four examples (``examples/*_torch.py``) as subprocesses on the
+   card at their default sizes, side by side, each within
+   ``EXAMPLE_TIMEOUT_S``: each must exit 0 with its own last check's line
+   (``train_lm``'s "loss did not improve" assertion among them), and the
+   quickstart and the serving example an encode and a decode kernel each
+   (the codec their plans pick); their wall times.
+16. Prints the card line, a ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -499,6 +517,23 @@ TRAIN_SMALL_LRS = 2.5
 # took the most device time.
 PROFILE_TOP = 8
 
+# Training at train_4k's sequence length (step 12 (f)): full-width olmo-1b
+# in bfloat16, remat "none", LONG_BATCH x LONG_SEQ tokens (past the 2,048
+# dense threshold, so every layer's attention is the chunked one with its
+# recomputing backward), LONG_STEPS steps of which the first warms up; the
+# peak must stay inside the card (H100_HBM_BYTES). The one-layer check:
+# chunked_attention's gradients against full_attention's autograd ones at
+# LONG_ATTN (batch, seq, heads, head_dim), causal, 1,024-wide chunks,
+# each gradient within LONG_ATTN_SHARE[dtype] of its largest magnitude
+# (bfloat16: measured ~5e-3 on the CPU at (1, 2,048, 8, 128), one bf16
+# rounding of the output and of each probability; float32 with TF32 off:
+# ~1e-6), and the bytes saved_tensors_hooks packs for one call, beside
+# those of autograd through the forward loop alone (the S^2 blocks).
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 4096, 4
+LONG_ATTN = (1, 4096, 16, 128)
+LONG_ATTN_CHUNK = 1024
+LONG_ATTN_SHARE = {"bfloat16": 2e-2, "float32": 1e-5}
+
 # Meshed cloud (step 13): the bit widths of the sharded decodes (a); the
 # granite-34b depth one 80 GB card holds with room to serve (36 of 88
 # layers, 39.4 GB of bfloat16 weights), its pinned cut (after block 9: 26
@@ -532,6 +567,25 @@ ACCT_TIMED_STEPS = 5
 ACCT_CLI = (("--arch", "olmo-1b", "--shape", "decode_32k"),
             ("--arch", "olmo-1b", "--shape", "decode_32k", "--multi-pod"))
 ACCT_CLI_TIMEOUT_S = 240
+# scripts/hillclimb_torch.py on the first CLI's combination, one process a
+# variant, started with the CLIs; the baseline's record must equal the
+# first CLI's (``--out``) but for the count's seconds.
+ACCT_HILLCLIMB = ("baseline", "tp_weights")
+
+# The examples (step 15): each ``examples/<name>_torch.py`` at its default
+# size on the card, the four side by side, each within EXAMPLE_TIMEOUT_S,
+# must print its last check's line. The two JALAD examples print the
+# kernels they launched: an encode (K1, K3 or K4, by the codec its plans
+# pick) and a decode (K2 or K5) each.
+EXAMPLES = {
+    "quickstart": (True, "decoupled inference: sent"),
+    "edge_cloud_serving": (True, "adaptation events:"),
+    "multiarch_decoupling": (False, "JALAD's cut+compress applies"),
+    "train_lm": (False, "OK: loss improved"),
+}
+EXAMPLE_TIMEOUT_S = 300
+ENCODE_KERNELS = ("fused_encode", "huffman_pack", "pc_encode")
+DECODE_KERNELS = ("fused_decode", "pc_decode")
 
 KERNELS = ("fused_encode", "fused_decode", "huffman_pack", "pc_encode",
            "pc_decode")
@@ -3432,6 +3486,135 @@ def serve_train(torch, results):
     return counts
 
 
+def saved_bytes(torch, fn, *inputs) -> int:
+    """Bytes of the distinct storages ``saved_tensors_hooks`` packs for
+    the backward of ``fn(*inputs)``, the inputs' own left out."""
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn(*inputs)
+    del out
+    own = {t.untyped_storage()._cdata for t in inputs}
+    return sum(n for c, n in seen.items() if c not in own)
+
+
+def long_attention_check(torch) -> dict:
+    """Step 12 (f)'s one-layer check (see ``LONG_ATTN``)."""
+    import functools
+
+    from repro_torch.models.layers import attention as attn
+
+    b, s, h, hd = LONG_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    chunked = functools.partial(attn.chunked_attention, causal=True,
+                                q_chunk=LONG_ATTN_CHUNK,
+                                kv_chunk=LONG_ATTN_CHUNK)
+    dense = functools.partial(attn.full_attention, causal=True)
+    out = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        q, k, v, dout = (torch.randn(LONG_ATTN, generator=gen,
+                                     device="cuda").to(dtype)
+                         for _ in range(4))
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fn(*leaves).backward(dout)
+            return [t.grad for t in leaves]
+
+        got, want = grads(chunked), grads(dense)
+        t0 = sync_clock(torch)
+        grads(chunked)
+        chunked_ms = (sync_clock(torch) - t0) * 1e3
+        t0 = sync_clock(torch)
+        grads(dense)
+        dense_ms = (sync_clock(torch) - t0) * 1e3
+        shares = [float((g.float() - w.float()).abs().max()
+                        / w.float().abs().max()) for g, w in zip(got, want)]
+        check(all(math.isfinite(x) and x <= LONG_ATTN_SHARE[name]
+                  for x in shares),
+              f"chunked attention's {name} gradients (dq, dk, dv) differ "
+              f"from full_attention's by {shares} of their scale, bound "
+              f"{LONG_ATTN_SHARE[name]}")
+        del got, want
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        kept = saved_bytes(torch, chunked, *leaves)
+        loop = saved_bytes(torch, lambda *a: attn._flash_forward(
+            *a, True, 0, LONG_ATTN_CHUNK, LONG_ATTN_CHUNK)[0], *leaves)
+        out[name] = dict(shares=shares, saved_bytes=kept,
+                         loop_saved_bytes=loop, chunked_ms=chunked_ms,
+                         dense_ms=dense_ms)
+        print(f"  (f) chunked attention at {LONG_ATTN} {name}, causal, "
+              f"chunks of {LONG_ATTN_CHUNK}: dq, dk, dv within "
+              f"{', '.join(f'{x:.2e}' for x in shares)} of full_attention's "
+              f"scale (bound {LONG_ATTN_SHARE[name]}); forward and backward "
+              f"{chunked_ms:.1f} ms (dense {dense_ms:.1f} ms, second calls); "
+              f"saved for the backward {kept / 1e6:.1f} MB (autograd through "
+              f"the loop: {loop / 1e6:.1f} MB)")
+        del q, k, v, dout, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_long(torch, results):
+    """Step 12 (f): full-width olmo-1b trained at LONG_BATCH x LONG_SEQ
+    tokens with remat "none", after the one-layer attention check."""
+    from repro_torch.config import H100_HBM_BYTES, ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import ShardedLoader, make_batch
+    from repro_torch.models.api import batch_to
+    from repro_torch.training.loop import train
+
+    out = dict(attention=long_attention_check(torch))
+    model, params, init_s = load_lm(torch, TRAIN_ARCH, draw="device")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=LONG_STEPS, log_every=0, remat="none")
+    torch.cuda.reset_peak_memory_stats()
+    res = train(model, tc, ShardedLoader(model.cfg, LONG_BATCH, LONG_SEQ,
+                                         seed=0),
+                params=params, num_steps=LONG_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in res.losses),
+          f"4k-token training losses {res.losses}")
+    check(peak < H100_HBM_BYTES, f"4k-token training peaked at {peak} B")
+    step_ms = statistics.median(res.step_s[1:]) * 1e3
+    flops = model.analytic_step_flops(
+        ShapeConfig("chip_train_4k", LONG_SEQ, LONG_BATCH, "train"))
+    mfu = flops / (step_ms / 1e3 * BF16_PEAK_FLOPS)
+    card = card_line()
+    out.update(arch=model.cfg.arch_id, batch=LONG_BATCH, seq=LONG_SEQ,
+               remat="none", init_s=init_s, losses=res.losses,
+               step_ms=[v * 1e3 for v in res.step_s], median_step_ms=step_ms,
+               tokens_per_s=LONG_BATCH * LONG_SEQ / step_ms * 1e3,
+               peak_bytes=peak, flops=flops, mfu=mfu, card=card)
+    print(f"  (f) train() at {LONG_BATCH} x {LONG_SEQ} tokens, remat none: "
+          f"median of {LONG_STEPS - 1} steps after a warm-up {step_ms:.1f} "
+          f"ms (first {res.step_s[0] * 1e3:.1f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, mfu {mfu:.4f} on "
+          f"{flops / 1e12:.2f} TFLOP a step; peak memory "
+          f"{peak / 1e9:.2f} GB; loss {res.losses[0]:.4f} -> "
+          f"{res.losses[-1]:.4f} ({card})")
+    tb = batch_to(make_batch(model.cfg, LONG_BATCH, LONG_SEQ, seed=5),
+                  torch.device("cuda"))
+    prof = profile_train_step(torch, model, res.params, res.opt_state, tc,
+                              tb)
+    out["profile"] = prof
+    print(f"  (f) one profiled {LONG_BATCH} x {LONG_SEQ} step: "
+          f"{prof['step_ms']:.1f} ms, {prof['kernels']} device kernels, "
+          f"{prof['device_ms']:.1f} ms of device time (busy "
+          f"{prof['busy_share']:.1%}); operators by the device time of "
+          f"their kernels:")
+    for name, calls, ms in prof["top"]:
+        print(f"      {ms:8.2f} ms  {name} ({calls} calls)")
+    del res, params, tb
+    torch.cuda.empty_cache()
+    results["train_long"] = out
+
+
 def _mesh_edges():
     from repro_torch.config.types import DeviceProfile
 
@@ -3763,13 +3946,27 @@ def account_steps(torch, results):
     from repro_torch.models.api import build_model
     from repro_torch.serving.meshed import aot_tail_report
 
+    import tempfile
+
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    clis = []
-    for argv in ACCT_CLI:
-        clis.append((argv, time.perf_counter(), subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
-            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    records = {"dryrun": tmp / "dryrun.jsonl"}
+    records.update({v: tmp / f"hillclimb_{v}.jsonl" for v in ACCT_HILLCLIMB})
+    clis, climbs = [], []
+
+    def start(cmd, argv):
+        return (argv, time.perf_counter(), subprocess.Popen(
+            [sys.executable, *cmd, *argv], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    for i, argv in enumerate(ACCT_CLI):
+        out_arg = ("--out", str(records["dryrun"])) if i == 0 else ()
+        clis.append(start(("-m", "repro_torch.launch.dryrun"),
+                          (*argv, *out_arg)))
+    for v in ACCT_HILLCLIMB:
+        climbs.append(start((str(ROOT / "scripts" / "hillclimb_torch.py"),),
+                            (ACCT_CLI[0][1], ACCT_CLI[0][3], v, "--out",
+                             str(records[v]))))
     try:
         out = dict(card=card_line())
         mesh = make_host_mesh(device="cuda")
@@ -3859,6 +4056,7 @@ def account_steps(torch, results):
         # (c) ends before the timed steps: they run with no other work on
         # the host (the step is bound by its host dispatch).
         cli = [_finish(*c) for c in clis]
+        climbed = [_finish(*c) for c in climbs]
         times = []
         for _ in range(ACCT_TIMED_STEPS):
             t1 = sync_clock(torch)
@@ -3890,7 +4088,7 @@ def account_steps(torch, results):
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-        for _, _, proc in clis:
+        for _, _, proc in clis + climbs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -3904,7 +4102,76 @@ def account_steps(torch, results):
         check(rc == 0, f"dryrun {' '.join(argv)} exited {rc}:\n{log[-3000:]}")
         out.setdefault("cli", []).append(dict(argv=list(argv), rc=rc,
                                               seconds=secs, record=lines))
+    for argv, rc, secs, log in climbed:
+        check(rc == 0, f"hillclimb_torch.py {' '.join(argv)} exited {rc}:\n"
+              f"{log[-3000:]}")
+    recs = {k: json.loads(p.read_text().splitlines()[-1])
+            for k, p in records.items()}
+    shutil.rmtree(tmp, ignore_errors=True)
+    base, ref = dict(recs["baseline"]), recs["dryrun"]
+    extras = tuple(base.pop(k) for k in ("variant", "remat", "microbatches"))
+    check(extras == ("baseline", "blocks", 1) and list(base) == list(ref)
+          and all(base[k] == ref[k] for k in ref if k != "count_s"),
+          f"hillclimb's baseline record {recs['baseline']} differs from the "
+          f"dry run's {ref}")
+    out["hillclimb"] = dict(records=recs,
+                            seconds={a[2]: secs for a, _, secs, _ in climbed})
+    for (argv, _, secs, _), v in zip(climbed, ACCT_HILLCLIMB):
+        r = recs[v]
+        print(f"  (d) scripts/hillclimb_torch.py {' '.join(argv[:3])}: "
+              f"{secs:.1f} s; compute {r['compute_s'] * 1e3:.3f} / memory "
+              f"{r['memory_s'] * 1e3:.3f} / collective "
+              f"{r['collective_s'] * 1e3:.3f} ms, {r['dominant']}, "
+              f"{r['argument_bytes'] / 2**30:.2f} GiB of arguments a device"
+              + ("; == the dry run's record" if v == "baseline" else ""))
     results["accounting"] = out
+
+
+def run_examples(torch, results):
+    """Step 15: the four examples as subprocesses on the card, side by
+    side; each must exit 0 and print its last check's line."""
+    import ast
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}_torch.py")],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for name in EXAMPLES}
+    out = {}
+    try:
+        for name, (t0, proc) in procs.items():
+            try:
+                log, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                log, _ = proc.communicate()
+            secs = time.perf_counter() - t0
+            coded, last = EXAMPLES[name]
+            check(proc.returncode == 0 and last in log,
+                  f"examples/{name}_torch.py exited {proc.returncode}:\n"
+                  f"{log[-3000:]}")
+            launches = {}
+            for ln in log.splitlines():
+                if ln.startswith("kernel launches: "):
+                    launches = ast.literal_eval(ln[len("kernel launches: "):])
+            check(not coded or (
+                any(launches.get(k) for k in ENCODE_KERNELS)
+                and any(launches.get(k) for k in DECODE_KERNELS)),
+                f"examples/{name}_torch.py launched {launches}, wants an "
+                f"encode and a decode kernel")
+            out[name] = dict(seconds=secs, launches=launches,
+                             tail=log.splitlines()[-12:])
+            print(f"  examples/{name}_torch.py: rc 0 in {secs:.1f} s"
+                  + (f", launches {launches}" if launches else ""))
+            for ln in log.splitlines()[-6:]:
+                print(f"      {ln}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results["examples"] = out
 
 
 def _finish(argv, start, proc):
@@ -3989,8 +4256,10 @@ def main(argv=None) -> int:
     moe = step("moe lm serving", serve_moe_lm)
     mm = step("multimodal lm serving", serve_mm_lm)
     trained = step("training", serve_train)
+    step("training at 4k tokens", train_long)
     meshed = step("meshed cloud", serve_meshed, base, params)
     step("step accounting", account_steps)
+    step("examples", run_examples)
     paths = {"served": served, "pipeline": piped, "fleet": fleet,
              "threelaunch": k6_path, "channel_removal": removal,
              "three_tier": three, **lm,

@@ -61,6 +61,16 @@ class PredictorTables:
     def codec_index(self, name: str) -> int:
         return self.codecs.index(name)
 
+    def drops(self, codec: Optional[str] = None) -> np.ndarray:
+        """(N, C) accuracy-drop table of one codec (default: first)."""
+        k = self.codec_index(codec) if codec else 0
+        return self.acc_drop[:, :, k]
+
+    def sizes(self, codec: Optional[str] = None) -> np.ndarray:
+        """(N, C) per-batch wire-size table of one codec (default: first)."""
+        k = self.codec_index(codec) if codec else 0
+        return self.size_bytes[:, :, k]
+
     # -------------------------------------------------------- persistence
     @staticmethod
     def _npz_path(path: str) -> str:

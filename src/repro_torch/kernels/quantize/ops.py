@@ -344,6 +344,23 @@ def dequantize_wire(codes_flat: torch.Tensor, mn, mx, bits: int, shape,
                                  shape, out_dtype)[0]
 
 
+def dequantize_unpack(codes: torch.Tensor, mn, mx, bits: int, shape,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_pack`; ``shape`` is the original
+    tensor's shape. One K2 launch on the card: the nibble unpack (at 4
+    bits or fewer), the affine dequantization and the cast to
+    ``out_dtype``."""
+    return dequantize_wire(codes, mn, mx, bits, shape, out_dtype)
+
+
+def quantize_dequantize_kernel(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """One-call straight-through path (edge-side simulation): one K1 and
+    one K2 launch on the card, ``x``'s shape and dtype back."""
+    codes, mn, mx = quantize_pack(x, bits)
+    return dequantize_unpack(codes, mn, mx, bits, tuple(x.shape),
+                             out_dtype=x.dtype)
+
+
 def dequantize_codes_batch(codes2: torch.Tensor, mn, mx, bits: int, shape,
                            out_dtype=torch.float32) -> torch.Tensor:
     """(B, n) unpacked integer codes (one per element at every width, e.g.

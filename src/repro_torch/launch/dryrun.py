@@ -30,6 +30,7 @@ scans for the same reason).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -192,13 +193,38 @@ def fake_mode():
     return _FAKE_MODE
 
 
+@contextlib.contextmanager
+def rule_table(rules: Optional[Dict] = None):
+    """Swap ``rules`` in for ``sharding/rules.py``'s ``DEFAULT_RULES`` for
+    the block (None: the default stays), restored in a ``finally``.
+    ``resolve_spec`` reads the table at call time, so it holds for the
+    parameters, the batch and the model's activation constraints alike."""
+    import repro_torch.sharding.rules as rules_mod
+
+    saved = rules_mod.DEFAULT_RULES
+    if rules is not None:
+        rules_mod.DEFAULT_RULES = rules
+    try:
+        yield
+    finally:
+        rules_mod.DEFAULT_RULES = saved
+
+
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
-               train_cfg: Optional[TrainConfig] = None) -> Dict:
+               train_cfg: Optional[TrainConfig] = None,
+               rules: Optional[Dict] = None,
+               overrides: Optional[Dict] = None) -> Dict:
     """Count one combination on the fake production mesh, print its
-    summary and return the roofline record."""
+    summary and return the roofline record. ``rules`` replaces the rule
+    table for the whole counted step (:func:`rule_table`); ``overrides``
+    are config fields, ``cfg.replace(**overrides)`` (``kv_cache_bits=8``).
+    The reference's ``unroll`` has no counterpart: the port runs every
+    layer eagerly and counts every op, with no scan to unroll."""
     from repro_torch.launch.mesh import make_production_mesh
 
     cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     shape = INPUT_SHAPES[shape_name]
     if cfg.family == "cnn" and shape.mode != "train":
         raise ValueError("CNN testbed only runs the train shape")
@@ -209,7 +235,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     train_cfg = train_cfg or TrainConfig()
 
     t0 = time.perf_counter()
-    count = count_fake_step(model, shape, train_cfg, mesh)
+    with rule_table(rules):
+        count = count_fake_step(model, shape, train_cfg, mesh)
     count_s = time.perf_counter() - t0
 
     report = analyze_step(

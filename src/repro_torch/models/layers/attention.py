@@ -10,7 +10,8 @@ sit at different positions (the reference vmaps batch-1 decodes, each
 with a scalar ``pos``). Cache writes are in place, at each row's own
 position; rows whose ``live`` flag is off keep their cache rows.
 
-Not ported: the flash backward (no training in the port).
+The chunked prefill's backward recomputes its score blocks, as the
+reference's custom VJP does.
 """
 from __future__ import annotations
 
@@ -178,16 +179,21 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Chunked (online-softmax) attention for long prefill: forward only
+# Chunked (online-softmax) attention for long prefill, with a backward that
+# recomputes the score blocks
 # ---------------------------------------------------------------------------
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: int = 0, q_chunk: int = 1024,
                       kv_chunk: int = 1024) -> torch.Tensor:
-    """Flash-style attention forward: outer loop over query chunks, inner
-    online softmax over key/value chunks; the transient is O(q_chunk *
-    kv_chunk) per (batch, head)."""
+    """Flash attention: outer loop over query chunks, inner online softmax
+    over key/value chunks. When a gradient is asked for, the call is an
+    autograd Function whose backward RECOMPUTES each score block from
+    ``q``, ``k``, ``v``, the output and the log-sum-exp (the reference's
+    custom VJP), so both directions hold O(q_chunk * kv_chunk) per (batch,
+    head): autograd through the loops would save every probability block,
+    the full S^2 scores, for the backward."""
     b, s, h, hd = q.shape
     sk = k.shape[1]
     if causal and s != sk:
@@ -198,11 +204,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"seq q={s}/k={sk} not divisible by chunks {q_chunk}/{kv_chunk}"
         )
-    kvh = k.shape[2]
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, window, q_chunk, kv_chunk)
+    return _flash_forward(q, k, v, causal, window, q_chunk, kv_chunk)[0]
+
+
+def _flash_forward(q, k, v, causal: bool, window: int, q_chunk: int,
+                   kv_chunk: int, want_lse: bool = False):
+    """(out (B, S, H, K), each query chunk's log-sum-exp (nq, B, kv, g,
+    qc) in float32, or None unless ``want_lse``)."""
+    b, s, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = hd ** -0.5
     qg = _split_gqa(q, kvh)
-    outs = []
+    outs, lses = [], []
     for qi in range(s // q_chunk):
         qblk = qg[:, qi * q_chunk:(qi + 1) * q_chunk]       # (B,qc,kv,g,K)
         acc = torch.zeros((b, kvh, g, q_chunk, hd), dtype=torch.float32,
@@ -228,9 +245,78 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         out = acc / torch.clamp_min(l_sum, 1e-30)[..., None]
         outs.append(out.to(q.dtype))
+        if want_lse:
+            lses.append(m + torch.log(torch.clamp_min(l_sum, 1e-30)))
     # (nq, B, kv, g, qc, K) -> (B, S, H, K)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5)
-    return out.reshape(b, s, h, hd)
+    return out.reshape(b, s, h, hd), (torch.stack(lses) if want_lse
+                                      else None)
+
+
+def _flash_backward(q, k, v, out, lse, dout, causal: bool, window: int,
+                    q_chunk: int, kv_chunk: int):
+    """(dq, dk, dv) in the inputs' dtypes: each score block recomputed,
+    ``p = exp(s - lse)``, ``ds = p * (dp - delta) * scale``, the three
+    gradients summed in float32 in the reference's order."""
+    b, s, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qg, dg = _split_gqa(q, kvh), _split_gqa(dout, kvh)
+    # delta_i = sum(dout * out) over head_dim: (B, kv, g, S)
+    delta = torch.sum(dg.float() * _split_gqa(out, kvh).float(),
+                      dim=-1).permute(0, 2, 3, 1)
+    dq = torch.empty((b, s, kvh, g, hd), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((b, sk, kvh, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for qi in range(s // q_chunk):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        qblk, doblk = qg[:, rows], dg[:, rows]              # (B,qc,kv,g,K)
+        lse_i, delta_i = lse[qi][..., None], delta[..., rows, None]
+        dq_acc = torch.zeros((b, q_chunk, kvh, g, hd), dtype=torch.float32,
+                             device=q.device)
+        for ki in range(sk // kv_chunk):
+            cols = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            kblk, vblk = k[:, cols], v[:, cols]
+            s_blk = torch.einsum("bqhgk,bshk->bhgqs", qblk, kblk).float()
+            s_blk = s_blk * scale
+            mask = _mask(q_chunk, kv_chunk, qi * q_chunk - ki * kv_chunk,
+                         causal, window, q.device)
+            s_blk = torch.where(mask[None, None, None], s_blk, _NEG_INF)
+            p = torch.exp(s_blk - lse_i)                    # (B,kv,g,qc,kc)
+            dp = torch.einsum("bqhgk,bshk->bhgqs", doblk, vblk).float()
+            ds = p * (dp - delta_i) * scale
+            dq_acc = dq_acc + torch.einsum(
+                "bhgqs,bshk->bqhgk", ds.to(kblk.dtype), kblk).float()
+            dk[:, cols] += torch.einsum(
+                "bhgqs,bqhgk->bshk", ds.to(qblk.dtype), qblk).float()
+            dv[:, cols] += torch.einsum(
+                "bhgqs,bqhgk->bshk", p.to(doblk.dtype), doblk).float()
+        dq[:, rows] = dq_acc
+    return (dq.reshape(b, s, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: the forward keeps ``q``,
+    ``k``, ``v``, the output and the log-sum-exp, never a score block.
+    Its forward runs with gradients off, so a selective checkpoint keeps
+    none of its products (``training/loop.py`` ``_save_dots``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        out, lse = _flash_forward(q, k, v, causal, window, q_chunk,
+                                  kv_chunk, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunking = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, dout, *ctx.chunking)
+        return dq, dk, dv, None, None, None, None
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,

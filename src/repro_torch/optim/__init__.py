@@ -6,5 +6,11 @@ from repro_torch.optim.adamw import (
     init_state,
 )
 
-__all__ = ["AdamWState", "init_state", "cosine_lr", "clip_by_global_norm",
-           "apply_updates"]
+# The reference's public names; the port's own (``clip_by_global_norm``)
+# stay importable by name.
+__all__ = [
+    "AdamWState",
+    "init_state",
+    "cosine_lr",
+    "apply_updates",
+]

@@ -2,8 +2,8 @@
 decoders (KV caches and recurrent states), token streaming across a
 JALAD cut, the synchronous edge-cloud server, the pipelined server, the
 fleet server (many edges, one shared cloud) with its trace-shaped
-workloads, and the three-tier server (devices, one shared edge server,
-one cloud)."""
+workloads, the three-tier server (devices, one shared edge server, one
+cloud), and the meshed cloud worker with its fake-tensor tail report."""
 from repro_torch.serving.engine import Request, RequestScheduler, ServeSession
 from repro_torch.serving.scheduler import ContinuousBatchingEngine, GenRequest
 from repro_torch.serving.edge_cloud import (
@@ -25,6 +25,7 @@ from repro_torch.serving.fleet import (
     FleetServer,
     build_fleet_server,
 )
+from repro_torch.serving.meshed import MeshedCloudWorker, aot_tail_report
 from repro_torch.serving.three_tier import (
     ThreeTierServer,
     TriStageTimeline,
@@ -37,6 +38,8 @@ from repro_torch.serving.workloads import (
     make_trace,
 )
 
+# The reference's public names; the port's own (the three-tier server and
+# the two server factories) stay importable by name.
 __all__ = [
     "ContinuousBatchingEngine",
     "EdgeCloudServer",
@@ -46,6 +49,7 @@ __all__ = [
     "FleetTrace",
     "GenRequest",
     "LatencyBreakdown",
+    "MeshedCloudWorker",
     "PipelineRequest",
     "PipelinedEdgeCloudServer",
     "Request",
@@ -54,13 +58,10 @@ __all__ = [
     "Servable",
     "ServeSession",
     "StageTimeline",
-    "ThreeTierServer",
     "TokenStreamSession",
-    "TriStageTimeline",
+    "aot_tail_report",
     "bandwidth_walks",
-    "build_edge_cloud_server",
     "build_fleet_server",
-    "build_three_tier_server",
     "diurnal_rates",
     "make_trace",
     "step_stream_group",

@@ -38,9 +38,13 @@ _DOT_OPS = frozenset([torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def _save_dots(ctx, op, *args, **kwargs):
+    """Keep a product's output, unless it runs with gradients off: the
+    products inside an autograd Function's forward (the chunked
+    attention's score blocks) reach the backward through what the
+    Function saves, and keeping them would hold the S^2 scores."""
     from torch.utils.checkpoint import CheckpointPolicy
 
-    if op in _DOT_OPS:
+    if op in _DOT_OPS and torch.is_grad_enabled():
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

@@ -42,6 +42,11 @@ memory analysis; the port runs it once on fake tensors under a
   partitioner does); the port's CNN splits on "data" alone.
   The collectives an olmo-1b step issues on (2, 2) are recorded by kind
   beside XLA's.
+* **Variants.** olmo-1b's steps on (2, 2) under the hillclimb scripts'
+  ``replicated`` rule table (``rule_table``, the reference's
+  ``DEFAULT_RULES`` swapped the same way) and with ``kv_cache_bits=8``
+  (``cfg.replace``): argument bytes equal XLA's, as for the default
+  table. The two scripts' ``VARIANTS`` tables are equal.
 
 Every subprocess runs with one thread; the four run side by side.
 """
@@ -74,6 +79,45 @@ MESH_B = 8                        # meshed tails: divides both data axes
 MESH_POINTS = {"olmo-1b": [0, 1], "resnet50": [0, 10, 17, 19]}
 MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
 PARALLEL_BAND = 0.10
+# olmo-1b's (2, 2) steps under a rule-table variant or config overrides.
+VARIANT_CASES = [("replicated", m) for m in MODES] + \
+    [("kv8", "prefill"), ("kv8", "decode")]
+VARIANT_OVERRIDES = {"kv8": {"kv_cache_bits": 8}}
+
+
+def _script(name: str):
+    """A module of ``scripts/`` loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _variant(rules_mod, variants, variant: str):
+    """(context swapping the rule table in, config overrides)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = rules_mod.DEFAULT_RULES
+        table = variants.get(variant)
+        if table is not None:
+            rules_mod.DEFAULT_RULES = table
+        try:
+            yield
+        finally:
+            rules_mod.DEFAULT_RULES = saved
+
+    return swapped(), VARIANT_OVERRIDES.get(variant, {})
+
+
+def _tables(variants) -> dict:
+    return {k: None if v is None else {a: [list(c) for c in cs]
+                                       for a, cs in v.items()}
+            for k, v in variants.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +159,17 @@ def _port_side(group: str) -> dict:
                                            TrainConfig(remat="blocks"), m)
                 out["steps"][f"{arch}/{mode}/{name}"] = _count_dict(c)
     if group == "a":
+        variants = _script("hillclimb_torch").VARIANTS
+        out["variants"] = _tables(variants)
+        for variant, mode in VARIANT_CASES:
+            rules = variants.get(variant)
+            cfg = get_config("olmo-1b").reduced().replace(
+                **VARIANT_OVERRIDES.get(variant, {}))
+            with dryrun.rule_table(rules):
+                c = dryrun.count_fake_step(
+                    build_model(cfg), ShapeConfig(*TINY[mode]),
+                    TrainConfig(remat="blocks"), two)
+            out["steps"][f"olmo-1b/{mode}/2x2/{variant}"] = _count_dict(c)
         meshes = {k: mesh(v) for k, v in MESHES.items()}
         for arch in TAIL_ARCHS:
             model = build_model(get_config(arch).reduced())
@@ -151,16 +206,29 @@ def _ref_side(group: str) -> dict:
 
     out = {"steps": {}, "tails": {}}
     if group == "steps":
-        cases = [(a, m, "1x1") for a in ARCHS for m in MODES] + \
-            [("olmo-1b", m, "2x2") for m in MODES]
-        for arch, mode, name in cases:
-            model = build_model(get_config(arch).reduced())
+        import repro.sharding.rules as rules_mod
+
+        variants = _script("hillclimb").VARIANTS
+        out["variants"] = _tables(variants)
+        cases = [(a, m, "1x1", None) for a in ARCHS for m in MODES] + \
+            [("olmo-1b", m, "2x2", None) for m in MODES] + \
+            [("olmo-1b", m, "2x2", v) for v, m in VARIANT_CASES]
+        for arch, mode, name, variant in cases:
+            swapped, overrides = _variant(rules_mod, variants, variant)
+            model = build_model(get_config(arch).reduced().replace(
+                **overrides))
             mm = mesh((1, 1) if name == "1x1" else (2, 2))
-            step, args, in_sh = build_step(model, ShapeConfig(*TINY[mode]),
-                                           TrainConfig(remat="blocks"), mm)
-            with mm:
-                compiled = jax.jit(step, in_shardings=in_sh).lower(
-                    *args).compile()
+            # The table stays swapped through compile(): the activation
+            # constraints resolve against it at trace time.
+            with swapped:
+                step, args, in_sh = build_step(
+                    model, ShapeConfig(*TINY[mode]),
+                    TrainConfig(remat="blocks"), mm)
+                with mm:
+                    compiled = jax.jit(step, in_shardings=in_sh).lower(
+                        *args).compile()
+            if variant:
+                name = f"{name}/{variant}"
             ma = compiled.memory_analysis()
             coll = parse_collectives(compiled.as_text())
             out["steps"][f"{arch}/{mode}/{name}"] = {
@@ -211,6 +279,8 @@ def runs(tmp_path_factory):
         print(f"{side} {g}: {got['seconds']:.1f} s")
         for k in ("steps", "tails"):
             out[side][k].update(got[k])
+        if "variants" in got:
+            out[side]["variants"] = got["variants"]
     assert not fails, "\n".join(fails)
     return out
 
@@ -387,6 +457,32 @@ def test_olmo_collectives_by_kind(runs, mode):
     assert "all-gather" in port and ref
     assert {"all-reduce", "reduce-scatter"} & set(port)
     print(f"olmo-1b {mode} on 2x2: port {port}; XLA {ref}")
+
+
+def test_hillclimb_variants_match_reference(runs):
+    """``scripts/hillclimb_torch.py``'s rule tables are the reference
+    script's, variant for variant."""
+    port, ref = runs["port"]["variants"], runs["ref"]["variants"]
+    assert list(port) == list(ref)
+    assert port == ref
+
+
+@pytest.mark.parametrize("variant,mode", VARIANT_CASES)
+def test_variant_argument_bytes_match_xla(runs, variant, mode):
+    """Under the ``replicated`` table or ``kv_cache_bits=8``, olmo-1b's
+    (2, 2) step reads XLA's argument bytes; replicated weights grow them
+    past the default table's, an int8 cache shrinks a decode's."""
+    port = runs["port"]["steps"][f"olmo-1b/{mode}/2x2/{variant}"]
+    ref = runs["ref"]["steps"][f"olmo-1b/{mode}/2x2/{variant}"]
+    default = runs["port"]["steps"][f"olmo-1b/{mode}/2x2"]
+    assert port["argument_bytes"] == ref["argument_bytes"]
+    assert default["argument_bytes"] == \
+        runs["ref"]["steps"][f"olmo-1b/{mode}/2x2"]["argument_bytes"]
+    if variant == "replicated":
+        assert port["argument_bytes"] > default["argument_bytes"]
+    elif mode == "decode":
+        assert port["argument_bytes"] < default["argument_bytes"]
+    assert port["flops"] > 0
 
 
 @pytest.mark.parametrize("arch", TAIL_ARCHS)

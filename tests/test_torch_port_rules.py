@@ -77,6 +77,38 @@ def test_port_imports_neither_jax_nor_the_reference():
         set(out[2].strip().split(","))
 
 
+def _imported_modules(path: Path) -> set:
+    import ast
+
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_port_scripts_import_neither_jax_nor_the_reference():
+    """The port's examples and scripts beside the reference's
+    (``examples/*_torch.py``, ``scripts/*_torch.py``) and
+    ``chip_smoke.py`` import no ``jax`` and nothing of ``repro`` but
+    ``repro_torch``."""
+    root = SRC.parent
+    files = sorted(root.glob("examples/*_torch.py")) + \
+        sorted(root.glob("scripts/*_torch.py")) + [root / "chip_smoke.py"]
+    assert {f.name for f in files} >= {
+        "quickstart_torch.py", "edge_cloud_serving_torch.py",
+        "multiarch_decoupling_torch.py", "train_lm_torch.py",
+        "hillclimb_torch.py", "extrapolate_heavy_torch.py"}
+    for f in files:
+        mods = _imported_modules(f)
+        bad = sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
+                                                            "repro"))
+        assert bad == [], (f.name, bad)
+        assert any(m.startswith("repro_torch") for m in mods), f.name
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.codec import get_codec
     from repro_torch.config import JaladConfig, get_config
