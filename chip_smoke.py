@@ -270,7 +270,18 @@ NVIDIA card.
    print its record; their seconds. (d) ``scripts/hillclimb_torch.py``
    on the first CLI's combination under each of ``ACCT_HILLCLIMB``, in
    subprocesses started with (c)'s: the baseline's record equals the
-   first CLI's key for key (but the count's seconds).
+   first CLI's key for key (but the count's seconds). (e) Full-width
+   xlstm-1.3b at the published pattern's first period (``ACCT_RNN_LAYERS``
+   blocks, ``lllllll s``, weights drawn on the card) takes one real
+   ``build_step`` train step (remat "blocks") at ``ACCT_RNN_TRAIN`` and
+   one prefill at ``ACCT_RNN_PREFILL`` (batch, tokens) under the step
+   counter, which run the loops over time step by step: each must count
+   exactly the FLOPs of the fake step of the same geometry, whose loops
+   over time roll, and give finite outputs. Started with (c)'s CLIs and
+   printed as they are: the two full-depth xlstm-1.3b CLIs of
+   ``ACCT_CLI_RNN``, and olmo-1b x train_4k with and without
+   ``--no-unroll`` (``ACCT_UNROLL``), whose records must agree key for key
+   but the count's seconds.
 15. The four examples (``examples/*_torch.py``) as subprocesses on the
    card at their default sizes, side by side, each within
    ``EXAMPLE_TIMEOUT_S``: each must exit 0 with its own last check's line
@@ -566,7 +577,17 @@ ACCT_BAND = (0.95, 1.05)
 ACCT_TIMED_STEPS = 5
 ACCT_CLI = (("--arch", "olmo-1b", "--shape", "decode_32k"),
             ("--arch", "olmo-1b", "--shape", "decode_32k", "--multi-pod"))
-ACCT_CLI_TIMEOUT_S = 240
+# (e): xlstm-1.3b's first period of blocks, its real train and prefill
+# steps (batch, tokens) against the fake rolled ones; the full-depth xlstm
+# CLIs and the --no-unroll pair, beside the CLIs above.
+ACCT_RNN_ARCH = "xlstm-1.3b"
+ACCT_RNN_LAYERS = 8
+ACCT_RNN_TRAIN = (1, 128)
+ACCT_RNN_PREFILL = (1, 1024)
+ACCT_CLI_RNN = (("--arch", "xlstm-1.3b", "--shape", "train_4k"),
+                ("--arch", "xlstm-1.3b", "--shape", "prefill_32k"))
+ACCT_UNROLL = ("--arch", "olmo-1b", "--shape", "train_4k")
+ACCT_CLI_TIMEOUT_S = 600
 # scripts/hillclimb_torch.py on the first CLI's combination, one process a
 # variant, started with the CLIs; the baseline's record must equal the
 # first CLI's (``--out``) but for the count's seconds.
@@ -3963,6 +3984,13 @@ def account_steps(torch, results):
         out_arg = ("--out", str(records["dryrun"])) if i == 0 else ()
         clis.append(start(("-m", "repro_torch.launch.dryrun"),
                           (*argv, *out_arg)))
+    for argv in ACCT_CLI_RNN:
+        clis.append(start(("-m", "repro_torch.launch.dryrun"), argv))
+    for tag, extra in (("unroll", ()), ("no_unroll", ("--no-unroll",))):
+        records[tag] = tmp / f"{tag}.jsonl"
+        clis.append(start(("-m", "repro_torch.launch.dryrun"),
+                          (*ACCT_UNROLL, *extra, "--out",
+                           str(records[tag]))))
     for v in ACCT_HILLCLIMB:
         climbs.append(start((str(ROOT / "scripts" / "hillclimb_torch.py"),),
                             (ACCT_CLI[0][1], ACCT_CLI[0][3], v, "--out",
@@ -4053,6 +4081,7 @@ def account_steps(torch, results):
               f"counted / analytic FLOPs {ratio:.4f} outside {ACCT_BAND}")
         from torch.distributed.tensor.experimental import implicit_replication
 
+        out["rnn"] = count_rnn_steps(torch)
         # (c) ends before the timed steps: they run with no other work on
         # the host (the step is bound by its host dispatch).
         cli = [_finish(*c) for c in clis]
@@ -4116,6 +4145,16 @@ def account_steps(torch, results):
           f"dry run's {ref}")
     out["hillclimb"] = dict(records=recs,
                             seconds={a[2]: secs for a, _, secs, _ in climbed})
+    rolled, unrolled = recs["no_unroll"], recs["unroll"]
+    check(list(rolled) == list(unrolled) and all(
+        rolled[k] == unrolled[k] for k in unrolled if k != "count_s"),
+        f"{' '.join(ACCT_UNROLL)} --no-unroll counts {rolled}, the default "
+        f"{unrolled}")
+    out["no_unroll"] = dict(record=rolled, count_s=rolled["count_s"],
+                            default_count_s=unrolled["count_s"])
+    print(f"  (e) {' '.join(ACCT_UNROLL)}: --no-unroll's record == the "
+          f"default's, counted in {rolled['count_s']:.1f} s against "
+          f"{unrolled['count_s']:.1f} s")
     for (argv, _, secs, _), v in zip(climbed, ACCT_HILLCLIMB):
         r = recs[v]
         print(f"  (d) scripts/hillclimb_torch.py {' '.join(argv[:3])}: "
@@ -4125,6 +4164,84 @@ def account_steps(torch, results):
               f"{r['argument_bytes'] / 2**30:.2f} GiB of arguments a device"
               + ("; == the dry run's record" if v == "baseline" else ""))
     results["accounting"] = out
+
+
+def count_rnn_steps(torch) -> dict:
+    """Step 14 (e): full-width xlstm-1.3b at its first period of blocks on
+    the card, a real train step and a real prefill under the step counter
+    (the loops over time run step by step) against the fake steps of the
+    same geometry (their loops over time roll): FLOPs equal exactly."""
+    from repro_torch.config import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.dryrun import (
+        build_step,
+        count_fake_step,
+        place_args,
+        run_counted,
+    )
+    from repro_torch.models.api import build_model
+
+    base = get_config(ACCT_RNN_ARCH)
+    model = build_model(base.replace(
+        num_layers=ACCT_RNN_LAYERS,
+        block_pattern=base.block_pattern[:ACCT_RNN_LAYERS]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    weights = model.init(0, torch.device("cuda"), draw="device")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=100, remat="blocks")
+    out = dict(arch=ACCT_RNN_ARCH, pattern=model.cfg.block_pattern,
+               params=model.param_count())
+    for mode, (b, s) in (("train", ACCT_RNN_TRAIN),
+                         ("prefill", ACCT_RNN_PREFILL)):
+        shape = ShapeConfig(f"chip_{mode}", s, b, mode)
+        t1 = time.perf_counter()
+        fake = count_fake_step(model, shape, tc, None)
+        fake_s = time.perf_counter() - t1
+        step_fn, abstract, in_sh = build_step(model, shape, tc, None)
+        args = place_args(abstract, in_sh, None, "cuda")
+        with torch.no_grad():
+            for dst, src in zip(_leaves(args[0]), _leaves(weights)):
+                dst.copy_(src)
+            if mode == "train":
+                for t in _leaves(args[1]):
+                    t.zero_()
+            batch = args[-1]
+            batch["tokens"].copy_(torch.randint(
+                0, model.cfg.vocab_size, tuple(batch["tokens"].shape),
+                device="cuda"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got, count = run_counted(step_fn, args)
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t1
+        value = got[2]["loss"] if mode == "train" else got[0]
+        check(bool(torch.isfinite(value.float()).all()),
+              f"{ACCT_RNN_ARCH} real {mode} step gave non-finite values")
+        check(count.flops == fake.flops,
+              f"{ACCT_RNN_ARCH} {mode} at {b} x {s}: the real step counts "
+              f"{count.flops} FLOPs, the fake rolled step {fake.flops}")
+        out[mode] = dict(
+            batch=b, seq=s, flops=count.flops, fake_flops=fake.flops,
+            bytes=count.bytes_accessed, fake_bytes=fake.bytes_accessed,
+            ops=count.ops, fake_ops=fake.ops, temp_bytes=count.temp_bytes,
+            fake_temp_bytes=fake.temp_bytes, real_s=real_s, fake_s=fake_s,
+            value=float(value.float().mean()))
+        print(f"  (e) {ACCT_RNN_ARCH} ({ACCT_RNN_LAYERS} blocks "
+              f"{model.cfg.block_pattern}, {model.param_count():,} "
+              f"parameters) {mode} at {b} x {s}: the real step counts "
+              f"{count.flops:.6e} FLOPs == the fake rolled step's (bytes "
+              f"{count.bytes_accessed:.6e} / {fake.bytes_accessed:.6e}, ops "
+              f"{count.ops} / {fake.ops}, temp {count.temp_bytes} / "
+              f"{fake.temp_bytes}); counted in {real_s:.1f} s real, "
+              f"{fake_s:.1f} s fake")
+        del args, got, step_fn
+    del weights
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    print(f"  (e) peak {out['peak_gb']:.2f} GB above what was allocated "
+          f"before it")
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_examples(torch, results):

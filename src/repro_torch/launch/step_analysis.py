@@ -49,6 +49,15 @@ What it records, per device:
                 it, as a compiler's buffer assignment would keep it (and
                 not as long as Python holds it). Unfused, like the bytes.
 
+A counter made with ``rolled`` (loop kinds, ``"time"`` and / or
+``"layers"``) rolls the :func:`repro_torch.utils.scan.scan` loops of those
+kinds that run on fake tensors: three steps run, the middle one in a scope
+that multiplies everything recorded (FLOPs, bytes, operations,
+collectives) by the n - 2 steps it stands for, and its buffers that
+outlive it count n - 2 times in the temporary peak (see that module for
+the rule). Real tensors always run the loop, so a real step and a fake
+rolled step of the same geometry count the same.
+
 The operations DTensor runs on global-shape fakes to propagate shapes are
 not the step's and are not counted, so a real run and a fake run of the
 same step count the same.
@@ -60,6 +69,8 @@ analytic count when given, as the reference's does.
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import functools
 import sys
 import threading
@@ -71,6 +82,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.config.types import H100, H100_HBM_BW, H100_NVLINK_BW
 from repro_torch.sharding.activation import _dtensor_module
+from repro_torch.utils.scan import ACTIVE_COUNTERS
 from repro_torch.utils.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -108,6 +120,7 @@ class CollectiveOp:
     in_bytes: int
     group_size: int
     wire_bytes: float
+    times: int = 1          # issued this many times (a rolled loop's)
 
 
 @dataclass
@@ -116,13 +129,13 @@ class CollectiveStats:
 
     @property
     def total_wire_bytes(self) -> float:
-        return sum(o.wire_bytes for o in self.ops)
+        return sum(o.wire_bytes * o.times for o in self.ops)
 
     def by_kind(self) -> Dict[str, Tuple[int, float]]:
         out: Dict[str, Tuple[int, float]] = {}
         for o in self.ops:
             cnt, byt = out.get(o.kind, (0, 0.0))
-            out[o.kind] = (cnt + 1, byt + o.wire_bytes)
+            out[o.kind] = (cnt + o.times, byt + o.wire_bytes * o.times)
         return out
 
 
@@ -203,7 +216,7 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if _dtensor_module(t) is not None else t
 
 
-_ACTIVE: List["StepCounter"] = []
+_ACTIVE: List["StepCounter"] = ACTIVE_COUNTERS
 _PATCH_LOCK = threading.Lock()
 _PATCHED = False
 
@@ -265,15 +278,30 @@ class StepCounter(TorchDispatchMode):
     """Counts the operations run inside ``with counter:`` on local tensors.
     ``inputs`` is the step's argument tree (plain tensors or DTensors);
     :meth:`finish` takes the step's outputs and returns the
-    :class:`StepCount`."""
+    :class:`StepCount`. ``rolled`` names the kinds of
+    :func:`~repro_torch.utils.scan.scan` loop the counter rolls when they
+    run on fake tensors (``"time"``, ``"layers"``)."""
 
-    def __init__(self, inputs: Any = ()):
+    def __init__(self, inputs: Any = (), rolled: Tuple[str, ...] = ()):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
         self._flop_registry = flop_registry
         self._paused = 0
+        self.rolled = frozenset(rolled)
         self.count = StepCount()
+        # What a rolled loop's middle step records counts this many times;
+        # its scopes nest this deep.
+        self._mult = 1
+        self._depth = 0
+        # Rolled loops: their middle steps' forward regions [weight,
+        # depth, start, end, end of the next step]; the parts of the
+        # backward from the last step's first node to the first step's
+        # (depth, start, end); the middle gradient slices kept until the
+        # unbind's stack (span index, weight, from).
+        self._regions: List[List[int]] = []
+        self._backward: List[Tuple[int, int, int]] = []
+        self._kept: List[Tuple[int, int, int]] = []
         # storage key -> (local bytes, read?) of every input leaf
         self._inputs: Dict[int, List[Any]] = {}
         for t in _tensors(inputs):
@@ -313,7 +341,8 @@ class StepCounter(TorchDispatchMode):
         if name.startswith("prim::"):     # metadata queries of fakes
             return
         c = self.count
-        c.ops += 1
+        m = self._mult
+        c.ops += m
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         kind = _COLLECTIVE_KINDS.get(name)
@@ -324,20 +353,28 @@ class StepCounter(TorchDispatchMode):
         if kind is not None:
             in_b = sum(_nbytes(t) for t in ins)
             out_b = sum(_nbytes(t) for t in outs)
-            c.collectives.ops.append(price_collective(
-                kind, in_b, out_b, _collective_group(func, args, kwargs)))
+            op = price_collective(kind, in_b, out_b,
+                                  _collective_group(func, args, kwargs))
+            op.times = m
+            c.collectives.ops.append(op)
         packet = func._overloadpacket
         if packet in self._flop_registry:
-            c.flops += float(self._flop_registry[packet](*args, **kwargs,
-                                                         out_val=out))
+            c.flops += m * float(self._flop_registry[packet](
+                *args, **kwargs, out_val=out))
         if func.is_view or name in _NO_BYTES:
             return
+        self._moved(ins, outs, sum(_nbytes(t) for t in ins)
+                    + sum(_nbytes(t) for t in outs))
+
+    def _moved(self, ins: List[torch.Tensor], outs: List[torch.Tensor],
+               nbytes: int) -> None:
+        """An operation that reads ``ins``, writes ``outs`` and moves
+        ``nbytes`` (local tensors), counted in the current scope."""
         for t in ins:
             got = self._inputs.get(_storage_key(t))
             if got is not None and t.numel():
                 got[1] = True
-        c.bytes_accessed += sum(_nbytes(t) for t in ins) + \
-            sum(_nbytes(t) for t in outs)
+        self.count.bytes_accessed += self._mult * nbytes
         self._track(ins, outs)
 
     def _track(self, ins: List[torch.Tensor],
@@ -388,12 +425,209 @@ class StepCounter(TorchDispatchMode):
         for n, (nb, first, last, _) in enumerate(self._spans):
             if n not in live:
                 events += [(first, nb), (last + 1, -nb)]
+        for nb, first, last, n in self._copies():
+            if n not in live:
+                events += [(first, nb), (last + 1, -nb)]
         cur = peak = 0
         for _, delta in sorted(events, key=lambda e: (e[0], e[1] > 0)):
             cur += delta
             peak = max(peak, cur)
         c.temp_bytes = peak
         return c
+
+    # --------------------------------------------------------- rolled loops
+    def roll(self, n: int) -> "_Roll":
+        """The scopes and marks of one rolled loop of ``n`` steps."""
+        return _Roll(self, n)
+
+    def _copies(self) -> List[Tuple[int, int, int, int]]:
+        """(bytes, first, last, span index) of the buffers the rolled loops'
+        middle steps stand for beside the one they allocated (see
+        ``utils/scan.py``): for a buffer a middle step allocates that
+        outlives the next step, n - 3 more copies from the step's start
+        until the end of its loop's middle part of the backward if that
+        reads it, else until its last touch; for a middle gradient slice,
+        n - 3 more from that part's end until the unbind's stack. Copies
+        an inner loop adds in an outer loop's middle step count again."""
+        spans = self._spans
+        firsts = [s[1] for s in spans]
+        backward = sorted(self._backward, key=lambda b: b[1])
+
+        def end_of(depth, last):
+            end = last
+            for d, start, stop in backward:     # the innermost wins
+                if d == depth and start <= last <= stop:
+                    end = stop
+            return end
+
+        out: List[Tuple[int, int, int, int]] = []
+        for w, depth, a, b, next_end in sorted(self._regions,
+                                               key=lambda r: r[3] - r[2]):
+            lo, hi = bisect.bisect_right(firsts, a), \
+                bisect.bisect_right(firsts, b)
+            inside = [(s[0], s[1], s[2], k)
+                      for k, s in enumerate(spans[lo:hi], lo)]
+            inside += [g for g in out if a <= g[1] <= b]
+            for nb, _, last, k in inside:
+                if last > next_end:
+                    out.append((nb * (w - 1), a, end_of(depth, last), k))
+        for k, w, start in self._kept:
+            out.append((spans[k][0] * (w - 1), start, spans[k][2], k))
+        return out
+
+
+class _Roll:
+    """One rolled loop of ``n`` steps under ``counter``: the middle step's
+    scopes, forward (:meth:`middle`) and backward (:meth:`hook_backward`),
+    and the marks the temporary peak reads."""
+
+    def __init__(self, counter: StepCounter, n: int):
+        self.counter, self.n = counter, n
+        self._region: List[int] = []
+        self._start = self._end = self._mult = self._depth = 0
+
+    @contextlib.contextmanager
+    def times(self, k: int):
+        """What is recorded inside counts ``k`` times more."""
+        c = self.counter
+        saved = c._mult
+        c._mult = saved * k
+        try:
+            yield
+        finally:
+            c._mult = saved
+
+    @contextlib.contextmanager
+    def middle(self):
+        """The middle step's forward: counted n - 2 times."""
+        c = self.counter
+        c._depth += 1
+        region = [self.n - 2, c._depth, c.count.ops, 0, 0]
+        try:
+            with self.times(self.n - 2):
+                yield
+        finally:
+            c._depth -= 1
+        region[3] = region[4] = c.count.ops
+        self._region = region
+        c._regions.append(region)
+
+    def next_step_done(self) -> None:
+        """The last step's forward ended: a middle buffer read no later is
+        a carry."""
+        self._region[4] = self.counter.count.ops
+
+    def hook_backward(self, last, middle, first) -> None:
+        """Prehooks on the first node the backward runs of each step: the
+        middle step's nodes run in the n - 2 scope, and the marks of this
+        loop's part of the backward (the last step's first node to the
+        first step's)."""
+        c = self.counter
+
+        def on_last(_):
+            self._start, self._depth = c.count.ops, c._depth + 1
+
+        def on_middle(_):
+            c._depth += 1
+            self._mult = c._mult
+            c._mult *= self.n - 2
+
+        def on_first(_):
+            c._mult = self._mult
+            c._depth -= 1
+            self._end = c.count.ops
+            c._backward.append((self._depth, self._start, self._end))
+
+        last.register_prehook(on_last)
+        middle.register_prehook(on_middle)
+        first.register_prehook(on_first)
+
+    @contextlib.contextmanager
+    def _quiet(self):
+        c = self.counter
+        c._paused += 1
+        try:
+            yield
+        finally:
+            c._paused -= 1
+
+    def unbind(self, x: torch.Tensor, dim: int):
+        """The loop's ``unbind`` of ``x`` along ``dim``, counted as the one
+        view it is, without making its n slices: (first, second, last)."""
+        self.counter.count.ops += self.counter._mult
+        with self._quiet():
+            return tuple(x.select(dim, t) for t in (0, 1, self.n - 1))
+
+    def stack(self, three, dim: int) -> torch.Tensor:
+        """The loop's ``stack`` of n slices, ``three`` the first, a middle
+        one (n - 2 times) and the last, counted as the one operation it is,
+        without listing n slices. DTensors first move to the placement
+        DTensor's stack gives them all (it depends only on which placements
+        come in), each move counted as often as its slice comes, and the
+        result takes the stack's placement."""
+        placements = None
+        if _dtensor_module(three[1]) is not None:
+            three, placements = self._placed(three, dim)
+        with self._quiet():
+            ins = [_local(t) for t in three]
+            d = dim % (ins[1].ndim + 1)
+            shape = list(ins[1].shape)
+            shape.insert(d, self.n)
+            loc = ins[1].unsqueeze(d).expand(shape).contiguous()
+            out = loc
+            if placements is not None:
+                from torch.distributed.tensor import DTensor
+
+                full = list(three[1].shape)
+                full.insert(d, self.n)
+                out = DTensor.from_local(
+                    loc, three[1].device_mesh, placements, run_check=False,
+                    shape=torch.Size(full),
+                    stride=torch.empty(full, device="meta").stride())
+        c = self.counter
+        c.count.ops += c._mult
+        c._moved(ins, [loc], _nbytes(ins[0]) + (self.n - 2) * _nbytes(ins[1])
+                 + _nbytes(ins[2]) + _nbytes(loc))
+        return out
+
+    def _placed(self, three, dim: int):
+        """``three`` moved as DTensor's stack moves its inputs
+        (``redistribute_local_tensor`` to the placement it follows), and
+        the stack's placement."""
+        from torch.distributed.tensor import DTensor, Shard
+        from torch.distributed.tensor._dtensor_spec import DTensorSpec
+        from torch.distributed.tensor._redistribute import (
+            redistribute_local_tensor,
+        )
+
+        with self._quiet():
+            placements = torch.stack(list(three), dim).placements
+        d = dim % (three[1].ndim + 1)
+        target = tuple(Shard(p.dim - 1) if type(p) is Shard and p.dim > d
+                       else p for p in placements)
+        out = []
+        for t, times in zip(three, (1, self.n - 2, 1)):
+            if tuple(t.placements) != target:
+                spec = DTensorSpec(t.device_mesh, target,
+                                   tensor_meta=t._spec.tensor_meta)
+                with self.times(times):
+                    loc = redistribute_local_tensor(t._local_tensor, t._spec,
+                                                    spec)
+                with self._quiet():
+                    t = DTensor.from_local(loc, t.device_mesh, target,
+                                           run_check=False, shape=t.shape,
+                                           stride=t.stride())
+            out.append(t)
+        return out, placements
+
+    def keep_middle_grad(self, g: torch.Tensor) -> None:
+        """The middle gradient slice lives n - 2 times over until the
+        unbind's stack."""
+        c = self.counter
+        with self._quiet():
+            got = c._buffers.get(_storage_key(_local(g)))
+        if got is not None and self._end and not got[1].expired():
+            c._kept.append((got[0], self.n - 2, self._end))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.types import ModelConfig
 from repro_torch.models.init import spec
+from repro_torch.utils.scan import scan
 
 MAMBA_HEAD_DIM = 64
 SSD_CHUNK = 256
@@ -120,18 +121,21 @@ def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    init_state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step-by-step recurrence (the decode's, and the oracle of
-    :func:`ssd_chunked`)."""
+    :func:`ssd_chunked`), through ``utils/scan.py`` ``scan``."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     S = (init_state if init_state is not None
          else x.new_zeros((b, h, n, p), dtype=torch.float32))
-    ys = []
-    for t in range(l):
-        decay = torch.exp(dt[:, t] * A)                       # (b,h)
-        dBx = torch.einsum("bn,bh,bhp->bhnp", B[:, t], dt[:, t], x[:, t])
+
+    def step(S, t, A):
+        xt, dtt, Bt, Ct = t
+        decay = torch.exp(dtt * A)                            # (b,h)
+        dBx = torch.einsum("bn,bh,bhp->bhnp", Bt, dtt, xt)
         S = S * decay[..., None, None] + dBx
-        ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], S))
-    return torch.stack(ys, dim=1), S
+        return S, torch.einsum("bn,bhnp->bhp", Ct, S)
+
+    S, y = scan(step, S, (x, dt, B, C), consts=(A,))
+    return y, S
 
 
 class MambaState(NamedTuple):

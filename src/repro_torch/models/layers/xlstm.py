@@ -8,8 +8,8 @@ mLSTM recurrence (per head, head_dim = dh):
     n_t = f_t n_{t-1} + i_t k_t
     h_t = (C_t^T q_t) / max(|n_t . q_t|, 1)
 
-Prefill and decode both run the recurrence, a loop over time (the
-reference scans). The stabilizer ``m`` keeps both exponentials finite; the
+Prefill and decode both run the recurrence, a loop over time through
+``utils/scan.py`` ``scan`` (the reference's ``lax.scan``). The stabilizer ``m`` keeps both exponentials finite; the
 states are float32 whatever the model's dtype.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.types import ModelConfig
 from repro_torch.models.init import spec
+from repro_torch.utils.scan import scan
 
 _M_INIT = -1e30          # the stabilizer's start: below any gate
 
@@ -82,10 +83,10 @@ def _mlstm_cell_scan(q, k, v, ig, fg, state: MLSTMState):
     """q,k,v: (B,L,h,dh) f32; ig,fg: (B,L,h) f32. Returns (y, (C, n, m))."""
     dh = q.shape[-1]
     k = k * dh ** -0.5
-    C, n, m = state.C, state.n, state.m
-    ys = []
-    for t in range(q.shape[1]):
-        qt, kt, vt, it_, ft_ = q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t]
+
+    def step(carry, t):
+        C, n, m = carry
+        qt, kt, vt, it_, ft_ = t
         m_new = torch.maximum(ft_ + m, it_)                     # (B,h)
         i = torch.exp(it_ - m_new)
         f = torch.exp(ft_ + m - m_new)
@@ -95,9 +96,10 @@ def _mlstm_cell_scan(q, k, v, ig, fg, state: MLSTMState):
         num = torch.einsum("bhvk,bhk->bhv", C, qt)
         den = torch.clamp(torch.abs(torch.einsum("bhk,bhk->bh", n, qt)),
                           min=1.0)
-        ys.append(num / den[..., None])
-        m = m_new
-    return torch.stack(ys, dim=1), (C, n, m)
+        return (C, n, m_new), num / den[..., None]
+
+    (C, n, m), y = scan(step, (state.C, state.n, state.m), (q, k, v, ig, fg))
+    return y, (C, n, m)
 
 
 def _conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -231,18 +233,19 @@ def apply_slstm(params, x: torch.Tensor, cfg: ModelConfig,
                                 params[f"w_{g}"])
                    + params[f"b_{g}"].to(x.dtype))
            for g in _GATES}
-    R = {g: params[f"r_{g}"].float() for g in _GATES}
+    R = tuple(params[f"r_{g}"].float() for g in _GATES)
 
-    c, n, hid, m = state.c, state.n, state.hid, state.m
-    ys = []
-    for t in range(l):
-        def rec(g):
-            return torch.einsum("bhk,hkv->bhv", hid, R[g])
+    def step(carry, t, rz, ri, rf, ro):
+        c, n, hid, m = carry
+        pz, pi, pf, po = t
 
-        zt = torch.tanh(pre["z"][:, t] + rec("z"))
-        it_ = pre["i"][:, t] + rec("i")
-        ft_ = pre["f"][:, t] + rec("f")
-        ot = torch.sigmoid(pre["o"][:, t] + rec("o"))
+        def rec(r):
+            return torch.einsum("bhk,hkv->bhv", hid, r)
+
+        zt = torch.tanh(pz + rec(rz))
+        it_ = pi + rec(ri)
+        ft_ = pf + rec(rf)
+        ot = torch.sigmoid(po + rec(ro))
         logf = torch.log(torch.sigmoid(ft_) + 1e-30)
         m_new = torch.maximum(logf + m, it_)
         i = torch.exp(it_ - m_new)
@@ -250,9 +253,10 @@ def apply_slstm(params, x: torch.Tensor, cfg: ModelConfig,
         c = f * c + i * zt
         n = f * n + i
         hid = ot * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        ys.append(hid)
-    y = torch.stack(ys, dim=1)                                  # (B,L,h,dh)
+        return (c, n, hid, m_new), hid
+
+    (c, n, hid, m), y = scan(step, (state.c, state.n, state.hid, state.m),
+                             tuple(pre[g] for g in _GATES), consts=R)
     ms = torch.mean(torch.square(y), dim=-1, keepdim=True)
     y = (y * (ms + 1e-5) ** -0.5).reshape(b, l, d)
     y = (y * params["out_norm"].float()).to(x.dtype)

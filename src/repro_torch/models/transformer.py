@@ -43,6 +43,8 @@ from repro_torch.sharding.activation import (
     gather_dim,
     on_batch_shard,
 )
+from repro_torch.utils.scan import scan, stack_trees
+from repro_torch.utils.tree import tree_map
 
 _HID = ("batch", "seq", "embed")   # layer-boundary activation layout
 
@@ -169,8 +171,25 @@ def _seg_layers(params, seg: Segment, sj: int) -> List[Any]:
     return _unstack(params["segments"][sj], seg.count)
 
 
-def _stack(entries: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
-    return {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+def _layers(params, seg: Segment, sj: int, lo: int, hi: int, step, carry,
+            cache=None) -> Tuple[Any, Any]:
+    """``step(carry, layer) -> (carry, y)`` over the layers ``[lo, hi)`` of
+    segment ``sj``, ``layer`` a layer's parameters, or ``(parameters,
+    cache entry)`` when ``cache`` (the range's stacked cache) is given:
+    ``utils/scan.py``'s ``"layers"`` scan over the segment's stacked tree
+    (sliced to the range when it is not the whole segment), or the one
+    call of a shared block. The ys come back stacked on a leading layer
+    axis."""
+    if seg.shared:
+        layer = params["shared_attn"]
+        carry, y = step(carry, layer if cache is None
+                        else (layer, _unstack(cache, 1)[0]))
+        return carry, stack_trees([y], 0)
+    tree = params["segments"][sj]
+    if (lo, hi) != (0, seg.count):
+        tree = tree_map(lambda a: a[lo:hi], tree)
+    return scan(step, carry, tree if cache is None else (tree, cache),
+                dim=0, loop="layers")
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -247,8 +266,11 @@ def run_encoder(params, cfg: ModelConfig, src: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     ctx = blk.SeqContext(_positions(b, s, x.device), 0, 0)
     enc = params["encoder"]
-    for layer in _unstack(enc["segments"][0], cfg.num_encoder_layers):
-        x = constrain(_apply_block("E", layer, x, ctx, cfg)[0], _HID)
+
+    def layer(x, p):
+        return constrain(_apply_block("E", p, x, ctx, cfg)[0], _HID), None
+
+    x, _ = scan(layer, x, enc["segments"][0], dim=0, loop="layers")
     return apply_norm("layernorm", enc["final_norm"], x)
 
 
@@ -324,14 +346,17 @@ def _run_seq(params, cfg: ModelConfig, x: torch.Tensor, ctx: blk.SeqContext,
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if ctx.want_aux else None)
     for sj, lo, hi in ranges:
-        entries = []
-        for layer in _seg_layers(params, plan[sj], sj)[lo:hi]:
-            x, aux, c = _apply_block(plan[sj].kind, layer, x, ctx, cfg)
+        def block(carry, layer, kind=plan[sj].kind):
+            x, aux_total = carry
+            x, aux, c = _apply_block(kind, layer, x, ctx, cfg)
             x = constrain(x, _HID)
             if aux is not None:
                 aux_total = aux_total + aux
-            entries.append(c)
-        caches.append(_stack(entries) if ctx.cache_len else None)
+            return (x, aux_total), c
+
+        (x, aux_total), c = _layers(params, plan[sj], sj, lo, hi, block,
+                                    (x, aux_total))
+        caches.append(c)
     return x, caches, aux_total
 
 
@@ -342,11 +367,11 @@ def _run_decode(params, cfg: ModelConfig, x: torch.Tensor,
     range's stacked cache is updated in place."""
     plan = segment_plan(cfg)
     for (sj, lo, hi), cache in zip(ranges, caches):
-        layers = _seg_layers(params, plan[sj], sj)[lo:hi]
-        for layer, entry in zip(layers, _unstack(cache, hi - lo)):
-            x, _ = blk.block_apply_decode(plan[sj].kind, layer, x, entry,
-                                          ctx, cfg)
-            x = constrain(x, _HID)
+        def block(x, xs, kind=plan[sj].kind):
+            x, _ = blk.block_apply_decode(kind, xs[0], x, xs[1], ctx, cfg)
+            return constrain(x, _HID), None
+
+        x, _ = _layers(params, plan[sj], sj, lo, hi, block, x, cache)
     return x
 
 
