@@ -1,0 +1,9 @@
+"""Median host time of an engine step that admitted nothing, before the
+traced slice."""
+import statistics
+
+
+def read(run):
+    ms = [(s["t1"] - s["t0"]) * 1e3
+          for s in run.spans("decode_step", part="before")]
+    return statistics.median(ms) if ms else None
