@@ -16,6 +16,7 @@ tensor on ``device`` (default: the CUDA card; ``"cpu"`` on request).
 """
 from __future__ import annotations
 
+import functools
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import quantize_dequantize
+from repro_torch.utils.trace import span
 
 
 @dataclass(frozen=True)
@@ -127,6 +129,29 @@ class BoundaryCodec(ABC):
                             ) -> List[int]:
         """Exact wire sizes of one boundary at every bit width."""
         return [self.transfer_size_bytes(x, b) for b in bits_list]
+
+
+def wire_span(kind: str):
+    """Decorate a codec's ``encode`` / ``encode_batch`` (``kind``
+    ``"encode"``) or ``decode`` / ``decode_batch`` (``"decode"``): each
+    call is a span ``codec.<kind>`` with the codec, the bit width, the
+    frames and the wire bytes of the blobs it made or read. It covers the
+    host framing and the copies that the kernel spans inside it do not."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, first, *args, **kwargs):
+            with span("codec." + kind, codec=self.name) as sp:
+                out = fn(self, first, *args, **kwargs)
+                if sp:
+                    made = out if kind == "encode" else first
+                    blobs = ([made] if isinstance(made, WireBlob)
+                             else list(made))
+                    sp.set(bits=blobs[0].bits if blobs else None,
+                           frames=len(blobs),
+                           wire_bytes=sum(b.nbytes for b in blobs))
+                return out
+        return call
+    return wrap
 
 
 def stackable_shapes(shapes: List[Tuple[int, ...]]) -> bool:

@@ -23,6 +23,7 @@ from repro_torch.codec.base import (
     ranges_f32,
     register_codec,
     stackable_shapes,
+    wire_span,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quantize import (
@@ -52,6 +53,7 @@ class BitpackCodec(BoundaryCodec):
     name = "bitpack"
     value_key = "tensor"
 
+    @wire_span("encode")
     def encode(self, x: torch.Tensor, bits: int) -> WireBlob:
         shape = tuple(x.shape)
         if x.numel() == 0:
@@ -62,6 +64,7 @@ class BitpackCodec(BoundaryCodec):
         return WireBlob(self.name, _frame(codes.cpu().numpy(), bits), shape,
                         bits, np.float32(rng[0]), np.float32(rng[1]))
 
+    @wire_span("encode")
     def encode_batch(self, xs: Sequence[torch.Tensor], bits: int
                      ) -> List[WireBlob]:
         xs = list(xs)
@@ -81,6 +84,7 @@ class BitpackCodec(BoundaryCodec):
             return np.frombuffer(blob.payload, np.uint8)
         return np.frombuffer(blob.payload, "<u2").astype(np.uint16)
 
+    @wire_span("decode")
     def decode(self, blob: WireBlob, out_dtype=torch.float32,
                device=None) -> torch.Tensor:
         dev = resolve_device(device)
@@ -90,6 +94,7 @@ class BitpackCodec(BoundaryCodec):
         return dequantize_wire(codes, blob.x_min, blob.x_max, blob.bits,
                                blob.shape, out_dtype)
 
+    @wire_span("decode")
     def decode_batch(self, blobs: Sequence[WireBlob], out_dtype=torch.float32,
                      device=None) -> List[torch.Tensor]:
         blobs = list(blobs)

@@ -24,6 +24,7 @@ from repro_torch.codec.base import (
     ranges_f32,
     register_codec,
     stackable_shapes,
+    wire_span,
 )
 from repro_torch.core import entropy as ent
 from repro_torch.core import quantization as q
@@ -34,6 +35,7 @@ from repro_torch.kernels.quantize import (
     dequantize_codes,
     dequantize_codes_batch,
 )
+from repro_torch.utils.trace import kernel_span, tensor_bytes
 
 
 def _calib_histograms(x: torch.Tensor, bits_list: Tuple[int, ...]
@@ -52,6 +54,8 @@ class HuffmanCodec(BoundaryCodec):
     name = "huffman"
     value_key = "tensor"
 
+    @kernel_span("huffman_host_route",
+                 lambda blob, self, x, bits: tensor_bytes(x) + blob.nbytes)
     def _encode_host(self, x: torch.Tensor, bits: int) -> WireBlob:
         """Host route: quantize, copy all codes, numpy bitstream build."""
         bump("huffman_host_route")
@@ -62,6 +66,7 @@ class HuffmanCodec(BoundaryCodec):
                         np.float32(quantized.x_min.item()),
                         np.float32(quantized.x_max.item()))
 
+    @wire_span("encode")
     def encode(self, x: torch.Tensor, bits: int) -> WireBlob:
         shape = tuple(x.shape)
         if x.numel() == 0:
@@ -74,6 +79,7 @@ class HuffmanCodec(BoundaryCodec):
         return WireBlob(self.name, payloads[0], shape, bits,
                         np.float32(mn[0]), np.float32(mx[0]))
 
+    @wire_span("encode")
     def encode_batch(self, xs: Sequence[torch.Tensor], bits: int
                      ) -> List[WireBlob]:
         xs = list(xs)
@@ -88,6 +94,7 @@ class HuffmanCodec(BoundaryCodec):
                          np.float32(mn[i]), np.float32(mx[i]))
                 for i in range(len(xs))]
 
+    @wire_span("decode")
     def decode(self, blob: WireBlob, out_dtype=torch.float32,
                device=None) -> torch.Tensor:
         dev = resolve_device(device)
@@ -99,6 +106,7 @@ class HuffmanCodec(BoundaryCodec):
                                 blob.x_min, blob.x_max, blob.bits,
                                 blob.shape, out_dtype)
 
+    @wire_span("decode")
     def decode_batch(self, blobs: Sequence[WireBlob], out_dtype=torch.float32,
                      device=None) -> List[torch.Tensor]:
         blobs = list(blobs)

@@ -28,6 +28,7 @@ from repro_torch.codec.base import (
     WireBlob,
     register_codec,
     stackable_shapes,
+    wire_span,
 )
 from repro_torch.core import quantization as q
 from repro_torch.device import resolve_device
@@ -53,6 +54,7 @@ class PerChannelCodec(BoundaryCodec):
     name = "perchannel"
     value_key = "channel"
 
+    @wire_span("encode")
     def encode(self, x: torch.Tensor, bits: int) -> WireBlob:
         shape = tuple(x.shape)
         ax = channel_axis(len(shape))
@@ -64,6 +66,7 @@ class PerChannelCodec(BoundaryCodec):
         return WireBlob(self.name, _frame(words.cpu().numpy()), shape, bits,
                         mn.cpu().numpy(), mx.cpu().numpy(), axis=ax)
 
+    @wire_span("encode")
     def encode_batch(self, xs: Sequence[torch.Tensor], bits: int
                      ) -> List[WireBlob]:
         xs = list(xs)
@@ -86,6 +89,7 @@ class PerChannelCodec(BoundaryCodec):
                 .view(np.int32).reshape(c, perchannel_words(length,
                                                             blob.bits)))
 
+    @wire_span("decode")
     def decode(self, blob: WireBlob, out_dtype=torch.float32,
                device=None) -> torch.Tensor:
         dev = resolve_device(device)
@@ -95,6 +99,7 @@ class PerChannelCodec(BoundaryCodec):
         return perchannel_decode(words, blob.x_min, blob.x_max, blob.bits,
                                  blob.shape, blob.axis, out_dtype)
 
+    @wire_span("decode")
     def decode_batch(self, blobs: Sequence[WireBlob], out_dtype=torch.float32,
                      device=None) -> List[torch.Tensor]:
         blobs = list(blobs)

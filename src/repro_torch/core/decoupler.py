@@ -33,6 +33,7 @@ from repro_torch.core.tri_planner import TriPlanSpace
 from repro_torch.device import tensor_device
 from repro_torch.models.api import Model, batch_to
 from repro_torch.models.init import torch_dtype
+from repro_torch.utils.trace import span
 
 
 @dataclass
@@ -98,19 +99,27 @@ class DecoupledRunner:
         self.device = tensor_device(self.params)
         self._dtype = torch_dtype(self.model.cfg.dtype)
 
+    def _head(self, batch) -> Tuple[torch.Tensor, Any]:
+        with span("decoupler.head", point=self.plan.point):
+            return _pair(self.model.run_head(
+                self.params, batch_to(batch, self.device), self.plan.point))
+
+    def _tail(self, x: torch.Tensor, extras=None) -> torch.Tensor:
+        with span("decoupler.tail", point=self.plan.point,
+                  frames=x.shape[0]):
+            return self.model.run_tail(self.params, x, self.plan.point,
+                                       extras)
+
     @torch.no_grad()
     def edge_step(self, batch) -> Tuple["WireBlob", Any]:
-        boundary, extras = _pair(self.model.run_head(
-            self.params, batch_to(batch, self.device), self.plan.point))
+        boundary, extras = self._head(batch)
         return self._codec.encode(boundary, self.plan.bits), extras
 
     @torch.no_grad()
     def edge_step_batch(self, batches) -> List[Tuple["WireBlob", Any]]:
         """Heads per request, then ONE batched codec encode of the
         same-shape boundaries; each blob byte-identical to ``edge_step``."""
-        pairs = [_pair(self.model.run_head(
-            self.params, batch_to(b, self.device), self.plan.point))
-            for b in batches]
+        pairs = [self._head(b) for b in batches]
         blobs = self._codec.encode_batch([p[0] for p in pairs],
                                          self.plan.bits)
         return [(blob, extras) for blob, (_, extras) in zip(blobs, pairs)]
@@ -121,8 +130,7 @@ class DecoupledRunner:
 
         boundary = get_codec(blob.codec).decode(blob, out_dtype=self._dtype,
                                                 device=self.device)
-        return self.model.run_tail(self.params, boundary, self.plan.point,
-                                   extras)
+        return self._tail(boundary, extras)
 
     @torch.no_grad()
     def cloud_step_batch(self, blobs: List["WireBlob"],
@@ -172,10 +180,8 @@ class DecoupledRunner:
         boundaries = get_codec(blobs[0].codec).decode_batch(
             blobs, out_dtype=self._dtype, device=self.device)
         if not fuse_tail:
-            return [self.model.run_tail(self.params, x, self.plan.point)
-                    for x in boundaries]
-        logits = self.model.run_tail(self.params, torch.cat(boundaries),
-                                     self.plan.point)
+            return [self._tail(x) for x in boundaries]
+        logits = self._tail(torch.cat(boundaries))
         return list(torch.split(logits, [int(b.shape[0]) for b in blobs]))
 
     def run(self, batch):

@@ -36,6 +36,7 @@ from repro_torch.core import entropy as ent
 from repro_torch.core.quantization import affine_scale, ordered_aminmax
 from repro_torch.kernels import build
 from repro_torch.kernels.counters import bump
+from repro_torch.utils.trace import kernel_span, tensor_bytes
 
 # A code may span at most two u32 words in the emission.
 PACK_MAX_CODE_BITS = 32
@@ -156,6 +157,7 @@ def pack_plan(bsz: int, n: int, bits: int) -> Tuple[int, int, int]:
     return chunks, 1 + 2 * tiles, smem
 
 
+@kernel_span("huffman_pack", lambda out, *args: tensor_bytes(*args[:5], out))
 def huffman_pack(xb: torch.Tensor, mn: torch.Tensor, scale: torch.Tensor,
                  code_lut: torch.Tensor, len_lut: torch.Tensor, bits: int,
                  w_words: int) -> torch.Tensor:

@@ -48,6 +48,7 @@ from repro_torch.kernels.quantize.ref import (
     perchannel_words,
     wire_len,
 )
+from repro_torch.utils.trace import kernel_span, tensor_bytes
 
 _THREADS = 256
 # Blocks in flight across the card (132 SMs x 8 resident 256-thread blocks).
@@ -177,6 +178,7 @@ def fused_encode_resident(device: torch.device, in_bf16: bool,
     return _resident(index, in_bf16, _code_mode(bits))
 
 
+@kernel_span("fused_encode", lambda out, xb, *_: tensor_bytes(xb, *out))
 def fused_encode(xb: torch.Tensor, bits: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on a (B, n) stack, n >= 1: (codes (B, wire_len), mn (B,), mx (B,))."""
@@ -230,6 +232,9 @@ def _check_ranges(what: str, ref: torch.Tensor, shape, *ranges) -> None:
                              f"{r.device}")
 
 
+@kernel_span("fused_decode",
+             lambda out, codes, *_, **__: tensor_bytes(codes, out)
+             + 8 * out.shape[0])
 def fused_decode(codes: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
                  bits: int, n: int, packed: bool,
                  out_dtype=torch.float32) -> torch.Tensor:
@@ -516,6 +521,7 @@ def pc_encode_plan(bsz: int, channels: int, length: int, bits: int,
                         4 * _pc_smem_floats(share))
 
 
+@kernel_span("pc_encode", lambda out, xb, *_: tensor_bytes(xb, *out))
 def pc_encode(xb: torch.Tensor, bits: int, axis: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 on a (B, *shape) stack with the channel on ``axis`` of the
@@ -565,6 +571,9 @@ def _pc_encode_cuda(xb: torch.Tensor, bits: int, axis: int,
 PC_TILE_MIN_INNER = 64
 
 
+@kernel_span("pc_decode",
+             lambda out, words, mn, *_, **__: tensor_bytes(words, out)
+             + 8 * mn.numel())
 def pc_decode(words: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
               bits: int, shape, axis: int,
               out_dtype=torch.float32) -> torch.Tensor:
@@ -690,6 +699,7 @@ def _minmax_resident(device_index: int, in_bf16: bool) -> int:
     return out.value
 
 
+@kernel_span("minmax_blocks", lambda out, x: tensor_bytes(x, *out))
 def minmax_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6a: a tensor of n >= 1 elements -> its ``(mn, mx)``, two 0-d
     float32 tensors on its device, in the reference's order (``-0.0 <
@@ -718,6 +728,7 @@ def minmax_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out[0], out[1]
 
 
+@kernel_span("quantize_blocks", lambda out, x, *_: tensor_bytes(x, out) + 8)
 def quantize_blocks(x: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
                     bits: int) -> torch.Tensor:
     """K6b: a tensor of n >= 1 elements + its 0-d float32 ``(mn, mx)`` on
@@ -746,6 +757,7 @@ def quantize_blocks(x: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
     return codes
 
 
+@kernel_span("pack4_blocks", lambda out, codes: tensor_bytes(codes, out))
 def pack4_blocks(codes: torch.Tensor) -> torch.Tensor:
     """K6c: (n,) u8 codes, n >= 1 -> (ceil(n / 2),) packed bytes ``codes[2i]
     | codes[2i + 1] << 4`` truncated to 8 bits (so codes of 16 and above

@@ -61,6 +61,7 @@ from repro_torch.core.planner import FleetPlanSpace
 from repro_torch.device import DeviceLike
 from repro_torch.serving.edge_cloud import LatencyBreakdown, RunnerCache
 from repro_torch.serving.pipeline import StageTimeline
+from repro_torch.utils.trace import span
 
 PlanKey = Tuple[int, int, str]            # (point, bits, codec)
 
@@ -255,18 +256,21 @@ class FleetServer:
         return len(self.devices)
 
     # -------------------------------------------------------------- stages
-    def _edge_and_link_phase(self, reqs: List[FleetRequest]) -> None:
+    def _edge_and_link_phase(self, reqs: List[FleetRequest]) -> int:
         """Per-device FIFO edge compute + encode + link transfer, decided
         wave-by-wave through the vectorized controller. The per-device
         decision/observation sequence is exactly the synchronous
         ``EdgeCloudServer.serve_batch`` sequence, so per-device plans
-        (and therefore results) match serving each device alone."""
-        for wave in request_waves(reqs):
+        (and therefore results) match serving each device alone. Returns
+        the number of waves."""
+        waves = request_waves(reqs)
+        for wave in waves:
             m = len(wave)
             dv = np.fromiter((r.device_id for r in wave), np.int64, m)
             bws = np.fromiter((r.bandwidth for r in wave), np.float64, m)
             # ONE fused fleet re-decision for the whole wave.
-            plan_j, _ = self.controller.current_plans(bws, dv)
+            with span("fleet.decide", wave=m):
+                plan_j, _ = self.controller.current_plans(bws, dv)
             # Real numerics: per-request edge halves (heterogeneous plans
             # cannot batch across devices; PR 3's micro-batching still
             # applies inside each request's own batch).
@@ -274,12 +278,16 @@ class FleetServer:
             for i, r in enumerate(wave):
                 plan = self.controller.plan_for(r.device_id)
                 r.plan = plan
-                if plan.is_cloud_only:
-                    nb = int(self.fleet_space.space.input_bytes * PNG_RATIO)
-                else:
-                    runner = self.runners.get(plan)
-                    r._blob, r._extras = runner.edge_step(r.batch)
-                    nb = r._blob.nbytes
+                with span("fleet.edge", uid=r.uid, device=r.device_id,
+                          point=plan.point, bits=plan.bits,
+                          codec=plan.codec):
+                    if plan.is_cloud_only:
+                        nb = int(self.fleet_space.space.input_bytes
+                                 * PNG_RATIO)
+                    else:
+                        runner = self.runners.get(plan)
+                        r._blob, r._extras = runner.edge_step(r.batch)
+                        nb = r._blob.nbytes
                 nbytes[i] = nb
             # Array-backed simulated clocks: vectorized FIFO bookkeeping
             # over the wave (each device appears at most once per wave).
@@ -315,6 +323,7 @@ class FleetServer:
                     plan.bits if not plan.is_cloud_only else 0,
                     plan.codec if not plan.is_cloud_only else "png",
                 )
+        return len(waves)
 
     def _edge_and_link_phase_scalar(self, reqs: List[FleetRequest]) -> None:
         """Reference path (``vectorized=False``): the original per-device
@@ -383,7 +392,8 @@ class FleetServer:
             members = groups[key]
             if key is None:
                 for r in members:
-                    r.logits = self.runners.full_forward(r.batch)
+                    with span("fleet.full_forward", uid=r.uid):
+                        r.logits = self.runners.full_forward(r.batch)
                 self.cloud_groups.append(
                     CloudGroup(None, [r.uid for r in members]))
                 continue
@@ -391,15 +401,16 @@ class FleetServer:
             step = max(self.cloud_batch, 1)
             for i in range(0, len(members), step):
                 chunk = members[i:i + step]
-                outs = runner.cloud_step_batch(
-                    [r._blob for r in chunk],
-                    [r._extras for r in chunk],
-                    fuse_tail=self.fuse_cloud_tail,
-                )
+                uids = [r.uid for r in chunk]
+                with span("fleet.cloud", key=key, uids=uids):
+                    outs = runner.cloud_step_batch(
+                        [r._blob for r in chunk],
+                        [r._extras for r in chunk],
+                        fuse_tail=self.fuse_cloud_tail,
+                    )
                 for r, logits in zip(chunk, outs):
                     r.logits = logits
-                self.cloud_groups.append(
-                    CloudGroup(key, [r.uid for r in chunk]))
+                self.cloud_groups.append(CloudGroup(key, uids))
         return queue
 
     # -------------------------------------------------------------- public
@@ -412,17 +423,18 @@ class FleetServer:
             if not 0 <= r.device_id < self.n_devices:
                 raise ValueError(
                     f"request {r.uid} names unknown device {r.device_id}")
-        if self.vectorized:
-            self._edge_and_link_phase(reqs)
-        else:
-            self._edge_and_link_phase_scalar(reqs)
-        done = self._cloud_phase(reqs)
-        # Per-device bookkeeping in submission order — mirrors the
-        # synchronous server's clock/log exactly.
-        for r in reqs:
-            self._clock[r.device_id] += r.breakdown.total_s
-            self._logs[r.device_id].append(r.breakdown)
-            r._blob = r._extras = None
+        with span("fleet.serve", requests=len(reqs)) as sp:
+            if self.vectorized:
+                sp.set(waves=self._edge_and_link_phase(reqs))
+            else:
+                self._edge_and_link_phase_scalar(reqs)
+            done = self._cloud_phase(reqs)
+            # Per-device bookkeeping in submission order — mirrors the
+            # synchronous server's clock/log exactly.
+            for r in reqs:
+                self._clock[r.device_id] += r.breakdown.total_s
+                self._logs[r.device_id].append(r.breakdown)
+                r._blob = r._extras = None
         self.completed.extend(done)
         return done
 

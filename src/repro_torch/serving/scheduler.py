@@ -40,6 +40,7 @@ import torch
 from repro_torch.config.types import ServeConfig
 from repro_torch.device import tensor_device
 from repro_torch.models.api import Model
+from repro_torch.utils.trace import span
 
 # Decode rows come in multiples of this (see the module docstring).
 DECODE_ROWS = 8
@@ -198,9 +199,11 @@ class ContinuousBatchingEngine:
                        ) -> Tuple[np.ndarray, torch.Tensor]:
         """Select the next token for every listed slot: batched on the
         device, one host transfer. Returns (host tokens, device tokens)."""
-        toks = sample_rows(rows, [self._slots[s].temperature for s in slots],
-                           [self._gens[s] for s in slots])
-        return toks.cpu().numpy(), toks     # the step's single host sync
+        with span("stream.select", rows=len(slots)):
+            toks = sample_rows(rows,
+                               [self._slots[s].temperature for s in slots],
+                               [self._gens[s] for s in slots])
+            return toks.cpu().numpy(), toks     # the step's single host sync
 
     def _record_token(self, slot: int, token: int) -> None:
         req = self._slots[slot]

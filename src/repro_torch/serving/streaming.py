@@ -47,6 +47,7 @@ from repro_torch.serving.scheduler import (
     copy_into_row,
     zero_row,
 )
+from repro_torch.utils.trace import span
 
 if TYPE_CHECKING:
     from repro_torch.codec import BoundaryCodec, StreamHeader, WireBlob
@@ -141,16 +142,20 @@ class TokenStreamSession(ContinuousBatchingEngine):
         sequence through the wire (a real encode/decode round trip,
         counted at stream framing cost), tail prefill on the cloud."""
         L, point = self.cfg.max_seq_len, self.plan.point
-        boundary, head = self.model.prefill_head(self.params,
-                                                 self._prompt(req), L, point)
-        blob = self._codec.encode(boundary, self.plan.bits)
-        self.bytes_sent += blob.stream_nbytes
-        x = self._codec.decode(blob, out_dtype=self._cloud_dtype,
-                               device=self.device)
-        logits, tail = self.cloud_model.prefill_tail(self.params, x, L, point)
-        copy_into_row(self._head_caches, head, slot)
-        copy_into_row(self._tail_caches, tail, slot)
-        self._seat(slot, req, logits)
+        with span("stream.join", uid=req.uid, prompt=len(req.tokens)):
+            with span("stream.head"):
+                boundary, head = self.model.prefill_head(
+                    self.params, self._prompt(req), L, point)
+            blob = self._codec.encode(boundary, self.plan.bits)
+            self.bytes_sent += blob.stream_nbytes
+            x = self._codec.decode(blob, out_dtype=self._cloud_dtype,
+                                   device=self.device)
+            with span("stream.tail"):
+                logits, tail = self.cloud_model.prefill_tail(self.params, x,
+                                                             L, point)
+            copy_into_row(self._head_caches, head, slot)
+            copy_into_row(self._tail_caches, tail, slot)
+            self._seat(slot, req, logits)
 
     def _record_token(self, slot: int, token: int) -> None:
         self.tokens_out += 1
@@ -169,11 +174,12 @@ class TokenStreamSession(ContinuousBatchingEngine):
         """Edge half of one step: ONE batched head decode over all rows
         (only the active rows' caches advance), the active boundary rows
         gathered as ``(1, 1, d)`` frames."""
-        live = self._live(active)
-        boundary, _ = self.model.decode_head(
-            self.params, self._last, self._pos, self._head_caches,
-            self.plan.point, self.cfg.max_seq_len, live)
-        return [boundary[s:s + 1] for s in active], live
+        with span("stream.head", rows=len(active)):
+            live = self._live(active)
+            boundary, _ = self.model.decode_head(
+                self.params, self._last, self._pos, self._head_caches,
+                self.plan.point, self.cfg.max_seq_len, live)
+            return [boundary[s:s + 1] for s in active], live
 
     def _account_encode(self, active: List[int],
                         blobs: Sequence["WireBlob"]) -> List[int]:
@@ -188,15 +194,16 @@ class TokenStreamSession(ContinuousBatchingEngine):
         batched tail decode (int8 KV update inside), advance the live
         rows' positions. Returns the (k, V) logits rows of the active
         slots."""
-        idx = torch.as_tensor(active, device=self.device)
-        dec = torch.zeros((self.rows,) + self._frame_shape[1:],
-                          dtype=self._cloud_dtype, device=self.device)
-        dec[idx] = torch.cat(list(xs))
-        logits, _ = self.cloud_model.decode_tail(
-            self.params, dec, self._pos, self._tail_caches, self.plan.point,
-            self.cfg.max_seq_len, live)
-        self._pos += live
-        return logits[idx, -1]
+        with span("stream.tail", rows=len(active)):
+            idx = torch.as_tensor(active, device=self.device)
+            dec = torch.zeros((self.rows,) + self._frame_shape[1:],
+                              dtype=self._cloud_dtype, device=self.device)
+            dec[idx] = torch.cat(list(xs))
+            logits, _ = self.cloud_model.decode_tail(
+                self.params, dec, self._pos, self._tail_caches,
+                self.plan.point, self.cfg.max_seq_len, live)
+            self._pos += live
+            return logits[idx, -1]
 
     # ------------------------------------------------------------------ step
     @torch.no_grad()
@@ -207,15 +214,20 @@ class TokenStreamSession(ContinuousBatchingEngine):
         that finished during this step."""
         self.step_count += 1
         done_before = len(self.completed)
-        self._admit()
-        active = self._active_slots()
-        if active:
-            rows, live = self._head_phase(active)
-            blobs = self._codec.encode_batch(rows, self.plan.bits)
-            self._account_encode(active, blobs)
-            xs = self._codec.decode_batch(blobs, out_dtype=self._cloud_dtype,
-                                          device=self.device)
-            self._finish_step(active, self._tail_phase(active, live, xs))
+        with span("stream.step", step=self.step_count) as sp:
+            events = len(self.events)
+            self._admit()
+            active = self._active_slots()
+            if sp:
+                sp.set(active=len(active),
+                       joins=sum(e[0] == "join" for e in self.events[events:]))
+            if active:
+                rows, live = self._head_phase(active)
+                blobs = self._codec.encode_batch(rows, self.plan.bits)
+                self._account_encode(active, blobs)
+                xs = self._codec.decode_batch(
+                    blobs, out_dtype=self._cloud_dtype, device=self.device)
+                self._finish_step(active, self._tail_phase(active, live, xs))
         return self.completed[done_before:]
 
     # ------------------------------------------------------------- protocol
@@ -261,28 +273,32 @@ def step_stream_group(sessions: Sequence[TokenStreamSession]
     codec = sessions[0]._codec
     dtype = sessions[0]._cloud_dtype
     device = sessions[0].device
-    staged = []
-    for s in sessions:
-        s.step_count += 1
-        s._admit()
-        active = s._active_slots()
-        rows, live = s._head_phase(active) if active else ([], None)
-        staged.append((s, active, rows, live))
-    all_rows = [r for _, _, rows, _ in staged for r in rows]
-    all_blobs = codec.encode_batch(all_rows, bits) if all_rows else []
-    all_xs = (codec.decode_batch(all_blobs, out_dtype=dtype, device=device)
-              if all_blobs else [])
-    out: List[Tuple[TokenStreamSession, List[int]]] = []
-    lo = 0
-    for s, active, rows, live in staged:
-        hi = lo + len(rows)
-        blobs, xs = all_blobs[lo:hi], all_xs[lo:hi]
-        lo = hi
-        uids: List[int] = []
-        if active:
-            uids = s._account_encode(active, blobs)
-            s._finish_step(active, s._tail_phase(active, live, xs))
-        out.append((s, uids))
+    with span("stream.step", step=sessions[0].step_count + 1,
+              sessions=len(sessions)) as sp:
+        staged = []
+        for s in sessions:
+            s.step_count += 1
+            s._admit()
+            active = s._active_slots()
+            rows, live = s._head_phase(active) if active else ([], None)
+            staged.append((s, active, rows, live))
+        all_rows = [r for _, _, rows, _ in staged for r in rows]
+        sp.set(active=len(all_rows))
+        all_blobs = codec.encode_batch(all_rows, bits) if all_rows else []
+        all_xs = (codec.decode_batch(all_blobs, out_dtype=dtype,
+                                     device=device)
+                  if all_blobs else [])
+        out: List[Tuple[TokenStreamSession, List[int]]] = []
+        lo = 0
+        for s, active, rows, live in staged:
+            hi = lo + len(rows)
+            blobs, xs = all_blobs[lo:hi], all_xs[lo:hi]
+            lo = hi
+            uids: List[int] = []
+            if active:
+                uids = s._account_encode(active, blobs)
+                s._finish_step(active, s._tail_phase(active, live, xs))
+            out.append((s, uids))
     return out
 
 
