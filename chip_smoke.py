@@ -77,6 +77,16 @@ NVIDIA card.
    within half a quantization step (and 8 float32 ulps of the range), and
    ``transfer_size_bytes`` equals the exact Huffman size of the decoded
    codes, the CPU run's, and lies within 64 bytes of ``nbytes``.
+5c. K7a (append) and K7b (attend), the int8 KV cache's decode step
+   (``kernels/attention/ops.py`` ``kv8_decode``), at the olmo-1b.stream_chat
+   cell's shapes (``KV8_SHAPE``: 32 rows of 2,048 slots, 16 kv heads of
+   128, bf16, lengths from ``bench/traffic/closed_chat.py``'s grid):
+   codes, scales and cache rows equal the plain composition's bit for bit,
+   one launch of each counter a call, the output's error against float64
+   attention at most 2^-8 of its scale and no more than the plain
+   version's plus 2^-9. Times one layer's call cold, eight layers' calls
+   (eight caches) back to back, each kernel warm and the plain composition,
+   beside the bound (the valid slots' codes and scales at 3.35 TB/s).
 6. Serves full-width ResNet-50 through the fleet server: D = 4
    heterogeneous edges (TX2, TK1, a mid and a fast edge) against one shared
    cloud under a flash-crowd trace (``make_trace``), batch 4 per request,
@@ -388,6 +398,9 @@ DECODE_KERNEL = {"huffman": "fused_decode", "bitpack": "fused_decode",
 # LM_NEW new ones, two arrivals a step) on LM_MAX_BATCH slots; the streams
 # pin LM_STREAM_POINT at LM_STREAM_BITS. decide_streaming is printed at
 # LM_BANDWIDTHS. The stream-shape kernel checks run at LM_KERNEL_BITS.
+# Step 5c: (rows, slots, heads, kv heads, head dim, tail layers) of the
+# olmo-1b.stream_chat cell's int8 tail KV cache.
+KV8_SHAPE = (32, 2048, 16, 16, 128, 8)
 LM_ARCH = "olmo-1b"
 LM_SESSION = (4, 32, 16)
 LM_SPLIT_POINTS = (0, 7, 15)
@@ -1609,6 +1622,147 @@ def check_threelaunch_kernels(torch, results, base, params):
     return rows, worst, counts
 
 
+def kv8_lengths(rows: int):
+    """Valid slots of the stream cell's rows: ``bench/traffic/
+    closed_chat.py``'s grid of 32 prompts (128-1,792 tokens) with each row
+    halfway through one of its 32 outputs (32-256 tokens)."""
+    import numpy as np
+
+    from bench.traffic.closed_chat import log_uniform_grid
+
+    prompts = log_uniform_grid(128, 1792, 32)
+    outputs = log_uniform_grid(32, 256, 32)
+    return np.resize(prompts + outputs[::-1] // 2, rows)
+
+
+def check_kv8_kernels(torch, results):
+    """Step 5c: K7a (append) and K7b (attend), ``kv8_decode``, at the
+    stream cell's shapes (32 rows, 2,048 slots, 16 kv heads of 128, bf16;
+    ``kv8_lengths``) against the plain composition on the card: codes and
+    scales bit for bit, the output's error against float64 attention over
+    the cache's exact values beside the plain version's. Times: one
+    layer's call cold (L2 flushed), eight layers' calls back to back on
+    eight caches (the tail's 8 layers of a step), each kernel warm, the
+    plain composition cold; the bound is the valid slots' codes and
+    scales, K and V, plus the rows in and out, at 3.35 TB/s."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.counters import count_launches
+
+    b, s_c, h, kv, hd, layers = KV8_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def cache():
+        return {"k": torch.randint(-127, 128, (b, s_c, kv, hd), generator=gen,
+                                   device=dev, dtype=torch.int8),
+                "v": torch.randint(-127, 128, (b, s_c, kv, hd), generator=gen,
+                                   device=dev, dtype=torch.int8),
+                "ks": torch.rand((b, s_c, kv), generator=gen, device=dev)
+                * 0.05 + 1e-3,
+                "vs": torch.rand((b, s_c, kv), generator=gen, device=dev)
+                * 0.05 + 1e-3}
+
+    caches = [cache() for _ in range(layers)]
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k_new = torch.randn((b, 1, kv, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) * 3
+    v_new = torch.randn((b, 1, kv, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    lens = kv8_lengths(b)
+    pos = torch.as_tensor(lens - 1, device=dev)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    args = (q, k_new, v_new)
+
+    plain_cache = {k: t.clone() for k, t in caches[0].items()}
+    kern_cache = {k: t.clone() for k, t in caches[0].items()}
+    want = aops.kv8_decode_plain(*args, plain_cache, pos, live)
+    with count_launches() as box:
+        got = aops.kv8_decode(*args, kern_cache, pos, live)
+    torch.cuda.synchronize()
+    check({k: v for k, v in box.counts.items() if v}
+          == {"kv8_append": 1, "kv8_attend": 1},
+          f"kv8_decode launches {box.counts}")
+    for key in ("k", "v"):
+        check(torch.equal(kern_cache[key], plain_cache[key]),
+              f"K7a {key} codes differ from the plain version's")
+    for key in ("ks", "vs"):
+        check(same_bits(kern_cache[key], plain_cache[key]),
+              f"K7a {key} scales differ from the plain version's")
+    kd = plain_cache["k"].double() * plain_cache["ks"].double()[..., None]
+    vd = plain_cache["v"].double() * plain_cache["vs"].double()[..., None]
+    sc = torch.einsum("bhk,bshk->bhs", q.double()[:, 0], kd) * hd ** -0.5
+    valid = (torch.arange(s_c, device=dev)[None]
+             < torch.clamp(pos + 1, max=s_c)[:, None])
+    sc = torch.where(valid[:, None], sc, -math.inf)
+    exact = torch.einsum("bhs,bshk->bhk", torch.softmax(sc, -1), vd)[:, None]
+    scale = float(exact.abs().max())
+    err = float((got.double() - exact).abs().max()) / scale
+    plain_err = float((want.double() - exact).abs().max()) / scale
+    check(err <= 2 ** -8 and err <= plain_err + 2 ** -9,
+          f"K7b output error {err:.3e} (plain {plain_err:.3e})")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    one_ms = device_ms(torch, lambda: aops.kv8_decode(
+        *args, caches[0], pos, live), flush)
+
+    def eight():
+        for c in caches:
+            aops.kv8_decode(*args, c, pos, live)
+
+    eight_ms = device_ms(torch, eight, flush)
+    plain_ms = device_ms(torch, lambda: aops.kv8_decode_plain(
+        *args, caches[1], pos, live), flush, reps=5)
+    eight()
+    torch.cuda.synchronize()
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        for _ in range(reps):
+            aops.kv8_decode(*args, caches[0], pos, live)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    count, own_us = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            count[e.name] += 1
+            own_us[e.name] += e.self_device_time_total
+    warm = {k: own_us[n] / 1e3 / count[n] * round(count[n] / reps)
+            for n in count for k in ("kv8_append_kernel", "kv8_split_kernel",
+                                     "kv8_combine_kernel") if k in n}
+
+    slots = int(torch.clamp(pos + 1, max=s_c).sum())
+    attend_bytes = (2 * slots * kv * (hd + 4)
+                    + 2 * q.numel() * q.element_size())
+    append_bytes = 2 * (k_new.numel() * 2 + b * kv * (hd + 4))
+    out = dict(shape=dict(rows=b, slots=s_c, heads=h, kv_heads=kv,
+                          head_dim=hd, dtype="bfloat16", layers=layers),
+               mean_valid_slots=slots / b, err=err, plain_err=plain_err,
+               ms=one_ms, eight_layers_ms=eight_ms, plain_ms=plain_ms,
+               warm_ms=warm, device_kernels=dict(count),
+               bound_ms=bound_ms(attend_bytes + append_bytes),
+               append_bound_ms=bound_ms(append_bytes),
+               attend_bound_ms=bound_ms(attend_bytes),
+               eight_layers_bound_ms=layers * bound_ms(attend_bytes
+                                                      + append_bytes))
+    out["bound_share_eight"] = out["eight_layers_bound_ms"] / eight_ms
+    results["kv8"] = out
+    print(f"  K7a/K7b at {b} rows x {s_c} slots x {kv} x {hd} bf16, "
+          f"{slots / b:.1f} valid slots a row: codes and scales == plain; "
+          f"output error {err:.3e} of its scale (plain {plain_err:.3e}); "
+          f"a layer {one_ms:.4f} ms cold (bound {out['bound_ms']:.4f}), 8 "
+          f"layers {eight_ms:.4f} ms (bound "
+          f"{out['eight_layers_bound_ms']:.4f}, "
+          f"{out['bound_share_eight']:.1%}); plain {plain_ms:.3f} ms a "
+          f"layer; warm {warm}")
+    return out
+
+
 def check_channel_removal(torch, results, base, params):
     """Step 5b: the paper's channel removal on a served boundary, trained
     on the card, and the masked boundary compressed through K3."""
@@ -2521,6 +2675,12 @@ def lm_plan_phase(torch, model, params, batch, point, calib_seq: int):
                         kernel_max_diff=worst, kernel_ms=kernel_ms)
 
 
+def kv8_layers(sess) -> int:
+    """Tail attention layers of ``sess`` whose KV cache is int8: each takes
+    one ``kv8_append`` and one ``kv8_attend`` launch a decode step."""
+    return sum(c["k"].shape[0] for c in sess._tail_caches if "ks" in c)
+
+
 def lm_stream_phase(torch, make, model, point, reqs, codec, counts,
                     solo: bool):
     """(c) and (e) of steps 8-10 for one codec: ``make(max_batch)``'s
@@ -2546,6 +2706,7 @@ def lm_stream_phase(torch, make, model, point, reqs, codec, counts,
         want = dict.fromkeys(got, 0)
         want[ENCODE_KERNEL[codec]] += n_join + grouped
         want[DECODE_KERNEL[codec]] += n_join + grouped
+        want["kv8_append"] = want["kv8_attend"] = grouped * kv8_layers(sess)
         check(grouped <= 1 and got == want,
               f"{model.cfg.arch_id} stream {codec} step {sess.step_count}: "
               f"launches { {k: v for k, v in got.items() if v} }, expected "
@@ -2698,6 +2859,7 @@ def lm_fleet_streams(torch, model, params, server, point, reqs):
     t1 = sync_clock(torch)
     while any(sess.queue or sess.num_active for sess in sessions):
         joins = [len(sess.events) for sess in sessions]
+        encodes = [len(sess.encode_groups) for sess in sessions]
         groups = len(fleet.cloud_groups)
         qops.reset_launch_counts()
         fleet.step_streams()
@@ -2707,6 +2869,10 @@ def lm_fleet_streams(torch, model, params, server, point, reqs):
         grouped = len(fleet.cloud_groups) - groups
         want = dict.fromkeys(got, 0)
         want["fused_encode"] = want["fused_decode"] = n_join + grouped
+        # Each session that decoded runs its own tail decode.
+        want["kv8_append"] = want["kv8_attend"] = sum(
+            kv8_layers(sess) for sess, n in zip(sessions, encodes)
+            if len(sess.encode_groups) > n)
         check(grouped <= 1 and got == want,
               f"fleet streams step {steps}: launches "
               f"{ {k: v for k, v in got.items() if v} }, expected "
@@ -4365,6 +4531,7 @@ def main(argv=None) -> int:
     k6_rows, _, k6_path = step("three-launch chain",
                                check_threelaunch_kernels, base, params)
     rows += k6_rows
+    kv8 = step("kv8 kernels", check_kv8_kernels)
     removal = step("channel removal", check_channel_removal, base, params)
     fleet = step("fleet", serve_fleet, params)
     three = step("three-tier", serve_three_tier, params)
@@ -4421,6 +4588,20 @@ def main(argv=None) -> int:
             "bound_by": "bytes", "library_ms": r["library_ms"],
             "warm_ms": r.get("profiled_ms"),
             "device_kernels": r.get("device_kernels")})
+    for name, kernel, bound in (
+            ("kv8_append", "kv8_append_kernel", "append_bound_ms"),
+            ("kv8_attend", "kv8_split_kernel", "attend_bound_ms")):
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/kv8_attention.cu",
+            "replaces": None, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": kv8["err"],
+            "ms": kv8["ms"], "plain_ms": kv8["plain_ms"],
+            "bound_ms": kv8[bound],
+            "bound_by": "bytes", "library_ms": None,
+            "warm_ms": kv8["warm_ms"].get(kernel),
+            "device_kernels": kv8["device_kernels"]})
     results["kernels"] = kernels
     if args.json:
         out = Path(args.json)

@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("quantize", "huffman_pack", "perchannel", "threelaunch")
+SOURCES = ("quantize", "huffman_pack", "perchannel", "threelaunch",
+           "kv8_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,7 +14,7 @@ from typing import Dict
 
 NAMES = ("fused_encode", "fused_decode", "huffman_pack", "huffman_host_route",
          "pc_encode", "pc_decode", "minmax_blocks", "quantize_blocks",
-         "pack4_blocks")
+         "pack4_blocks", "kv8_append", "kv8_attend")
 
 _COUNTS: Dict[str, int] = dict.fromkeys(NAMES, 0)
 _LOCK = threading.Lock()

@@ -29,6 +29,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config.types import ModelConfig
+from repro_torch.kernels.attention import ops as kv8_ops
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
 from repro_torch.models.layers import xlstm as xlstm_lib
@@ -328,24 +329,28 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
     q, k, v = attn_lib.project_qkv(params["attn"], h, ctx.pos[:, None], cfg,
                                    positions_3d=ctx.positions_3d)
     if cfg.kv_cache_bits == 8:
-        qk, ks_new = attn_lib.quantize_kv_row(k)
-        qv, vs_new = attn_lib.quantize_kv_row(v)
-        k_c, v_c = attn_lib.cache_update(cache["k"], cache["v"], qk, qv,
-                                         ctx.pos, ctx.live)
-        ks_c = attn_lib.scale_update(cache["ks"], ks_new, ctx.pos, ctx.live)
-        vs_c = attn_lib.scale_update(cache["vs"], vs_new, ctx.pos, ctx.live)
-        k_use = attn_lib.dequantize_kv(k_c, ks_c, q.dtype)
-        v_use = attn_lib.dequantize_kv(v_c, vs_c, q.dtype)
+        # Plain tensors take the kernel wrapper (the plain version on the
+        # CPU); sharded, meta or fake ones the plain composition.
+        decode = (kv8_ops.kv8_decode
+                  if _plain_tensor(q) and _plain_tensor(cache["k"])
+                  else kv8_ops.kv8_decode_plain)
+        out = decode(q, k, v, cache, ctx.pos, ctx.live)
     else:
         k_use, v_use = attn_lib.cache_update(cache["k"], cache["v"], k, v,
                                              ctx.pos, ctx.live)
-    out = attn_lib.decode_attention(q, k_use, v_use, ctx.pos + 1)
+        out = attn_lib.decode_attention(q, k_use, v_use, ctx.pos + 1)
     x = x + attn_lib.attn_output(params["attn"], out)
     if kind == "c":
         hx = apply_norm("layernorm", params["ln_x"], x)
         x = x + attn_lib.cross_attention(params["xattn"], hx, cache["xk"],
                                          cache["xv"])
     return x + _mlp(kind, params, x, cfg)[0], cache
+
+
+def _plain_tensor(t: torch.Tensor) -> bool:
+    """A tensor of the CPU or the card itself: no DTensor, no fake tensor
+    (both subclasses), no meta tensor."""
+    return type(t) is torch.Tensor and t.device.type in ("cpu", "cuda")
 
 
 def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,

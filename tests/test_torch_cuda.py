@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K7 against their plain PyTorch versions, on
 the card, the batched cloud step that the fleet server runs, channel
 removal's mask and ``compress`` against their CPU runs, the parameter
 draw on the card (``models/init.py``), and the vlm and audio families
@@ -804,3 +804,187 @@ def test_codecs_on_multimodal_boundaries_match_cpu(cuda, arch):
             assert torch.equal(back.cpu().view(torch.int32),
                                want.view(torch.int32))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K7a / K7b: the int8 KV cache's decode step
+# ---------------------------------------------------------------------------
+
+def _chat_lengths(rows):
+    """Valid slots of the stream's rows (bench/traffic/closed_chat.py's
+    grid of 32 prompts of 128-1,792 tokens, each row halfway through its
+    32-256 output tokens), repeated to ``rows``."""
+    from bench.traffic.closed_chat import log_uniform_grid
+
+    prompts = log_uniform_grid(128, 1792, 32)
+    outputs = log_uniform_grid(32, 256, 32)
+    return np.resize(prompts + outputs[::-1] // 2, rows)
+
+
+# (rows, S_c, heads, kv heads, head dim, dtype): the stream's shapes, GQA,
+# granite's MQA (48 query heads a kv head), zamba2's 80 and seamless's 64
+# head dims, the reduced models' float32, and head dims whose rows take 8,
+# 4, 2 and 1 codes a load.
+KV8_CASES = [
+    (32, 2048, 16, 16, 128, torch.bfloat16),
+    (5, 600, 32, 8, 128, torch.bfloat16),
+    (3, 300, 48, 1, 128, torch.bfloat16),
+    (4, 520, 32, 32, 80, torch.bfloat16),
+    (3, 257, 16, 16, 64, torch.bfloat16),
+    (3, 48, 4, 4, 64, torch.float32),
+    (3, 48, 4, 1, 64, torch.float32),
+    (4, 90, 12, 4, 24, torch.bfloat16),
+    (3, 70, 10, 2, 36, torch.float32),
+    (3, 33, 5, 5, 10, torch.bfloat16),
+    (2, 300, 7, 1, 7, torch.float32),
+    (2, 64, 6, 2, 256, torch.bfloat16),
+]
+
+
+def _kv8_inputs(case, cuda, seed=0):
+    """Random codes and scales in the cache, the step's q / k / v rows,
+    each row's position (ragged; the stream case on the chat grid; past
+    S_c where a ring buffer wraps) and a live mask with rows off."""
+    b, s_c, h, kv, hd, dt = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cache = {
+        "k": torch.randint(-127, 128, (b, s_c, kv, hd), generator=g,
+                           dtype=torch.int8),
+        "v": torch.randint(-127, 128, (b, s_c, kv, hd), generator=g,
+                           dtype=torch.int8),
+        "ks": torch.rand((b, s_c, kv), generator=g) * 0.05 + 1e-3,
+        "vs": torch.rand((b, s_c, kv), generator=g) * 0.05 + 1e-3}
+    q = torch.randn((b, 1, h, hd), generator=g).to(dt)
+    k_new = (torch.randn((b, 1, kv, hd), generator=g) * 3).to(dt)
+    v_new = torch.randn((b, 1, kv, hd), generator=g).to(dt)
+    if b == 32 and s_c == 2048:
+        pos = _chat_lengths(b) - 1
+    else:
+        pos = torch.randint(0, 2 * s_c, (b,), generator=g).numpy()
+        pos[0], pos[-1] = 0, s_c - 1
+    live = np.ones(b, bool)
+    live[1::3] = False
+    to = dict(device=cuda)
+    return ({k: t.to(**to) for k, t in cache.items()}, q.to(**to),
+            k_new.to(**to), v_new.to(**to),
+            torch.as_tensor(pos, dtype=torch.int64, device=cuda),
+            torch.as_tensor(live, device=cuda))
+
+
+def _kv8_exact(q, cache, pos):
+    """Float64 attention over the int8 cache's exact values: each row's
+    first min(pos + 1, S_c) slots."""
+    qd = q.double()[:, 0]
+    b, h, hd = qd.shape
+    kv = cache["k"].shape[2]
+    kd = cache["k"].double() * cache["ks"].double()[..., None]
+    vd = cache["v"].double() * cache["vs"].double()[..., None]
+    qg = qd.reshape(b, kv, h // kv, hd)
+    s = torch.einsum("bhgk,bshk->bhgs", qg, kd) * hd ** -0.5
+    s_c = kd.shape[1]
+    valid = torch.arange(s_c, device=q.device)[None] < torch.clamp(
+        pos + 1, max=s_c)[:, None]
+    s = torch.where(valid[:, None, None], s, torch.finfo(s.dtype).min)
+    p = torch.softmax(s, -1)
+    return torch.einsum("bhgs,bshk->bhgk", p, vd).reshape(b, 1, h, hd)
+
+
+def _clone(cache):
+    return {k: t.clone() for k, t in cache.items()}
+
+
+@pytest.mark.parametrize("case", KV8_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5])))
+def test_kv8_decode_matches_plain(cuda, case):
+    """K7a's codes and scales, so the whole cache, equal the plain
+    version's bit for bit. K7b's output is no less precise than the plain
+    version's: both against float64 attention over the cache's exact
+    values, the kernel's largest error over the output's scale at most
+    the plain version's plus 2^-9 (bf16; 1e-6 float32). The plain route
+    rounds each dequantized value, each score and each probability to bf16
+    (relative 2^-9 each), the kernel only its output; its own error is at
+    most 2^-8 of the scale in bf16 (one rounding of the output plus float32
+    sums) and 1e-5 in float32."""
+    from repro_torch.kernels.attention import ops as aops
+
+    cache, q, k_new, v_new, pos, live = _kv8_inputs(case, cuda)
+    plain_cache, kern_cache = _clone(cache), _clone(cache)
+    want = aops.kv8_decode_plain(q, k_new, v_new, plain_cache, pos, live)
+    got = aops.kv8_decode(q, k_new, v_new, kern_cache, pos, live)
+    torch.cuda.synchronize()
+    for key in ("k", "v"):
+        assert torch.equal(kern_cache[key], plain_cache[key]), key
+    for key in ("ks", "vs"):
+        assert _same_bits(kern_cache[key], plain_cache[key]), key
+    assert got.dtype == q.dtype and got.shape == q.shape
+    exact = _kv8_exact(q, plain_cache, pos)
+    scale = float(exact.abs().max())
+    err_k = float((got.double() - exact).abs().max()) / scale
+    err_p = float((want.double() - exact).abs().max()) / scale
+    bf16 = q.dtype == torch.bfloat16
+    assert err_k <= (2 ** -8 if bf16 else 1e-5), (err_k, err_p)
+    assert err_k <= err_p + (2 ** -9 if bf16 else 1e-6), (err_k, err_p)
+
+
+def test_kv8_decode_counts_its_launches(cuda):
+    """One ``kv8_append`` and one ``kv8_attend`` a call; the attend is two
+    device kernels (the splits and their combine), the append one."""
+    from repro_torch.kernels.attention import ops as aops
+
+    cache, q, k_new, v_new, pos, live = _kv8_inputs(KV8_CASES[0], cuda)
+    with qops.count_launches() as box:
+        aops.kv8_decode(q, k_new, v_new, cache, pos, live)
+        aops.kv8_decode(q, k_new, v_new, cache, pos, None)
+    assert {k: v for k, v in box.counts.items() if v} == {
+        "kv8_append": 2, "kv8_attend": 2}
+    kernels = _device_kernels(
+        lambda: aops.kv8_decode(q, k_new, v_new, cache, pos, live))
+    assert sorted(kernels.values()) == [1, 1, 1], kernels
+
+
+@pytest.mark.parametrize("case", [KV8_CASES[0], KV8_CASES[2], KV8_CASES[5]],
+                         ids=lambda c: "x".join(map(str, c[:5])))
+def test_kv8_decode_is_batch_invariant(cuda, case):
+    """A row's output and cache rows are bitwise the same whatever the
+    other rows hold and however long they are."""
+    from repro_torch.kernels.attention import ops as aops
+
+    cache, q, k_new, v_new, pos, live = _kv8_inputs(case, cuda)
+    other = _kv8_inputs(case, cuda, seed=1)
+    row = 0 if case[0] == 32 else case[0] - 1
+    mixed = _clone(other[0])
+    for key in cache:
+        mixed[key][row] = cache[key][row]
+    q2, k2, v2 = other[1].clone(), other[2].clone(), other[3].clone()
+    for t, src in ((q2, q), (k2, k_new), (v2, v_new)):
+        t[row] = src[row]
+    pos2 = torch.flip(pos, [0]).clone()
+    pos2[row] = pos[row]
+    live2 = live.clone()
+    live2[:] = True
+    live2[row] = live[row]
+    a = aops.kv8_decode(q, k_new, v_new, cache, pos, live)
+    b = aops.kv8_decode(q2, k2, v2, mixed, pos2, live2)
+    torch.cuda.synchronize()
+    assert torch.equal(a[row].view(torch.int8), b[row].view(torch.int8))
+    for key in cache:
+        assert torch.equal(cache[key][row].view(torch.int8),
+                           mixed[key][row].view(torch.int8)), key
+
+
+def test_kv8_decode_rejects_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.attention import ops as aops
+
+    cache, q, k_new, v_new, pos, live = _kv8_inputs(KV8_CASES[5], cuda)
+    bad = [
+        (q.half(), k_new.half(), v_new.half(), cache, pos, live),
+        (q, k_new, v_new, dict(cache, k=cache["k"].transpose(1, 2)), pos,
+         live),
+        (q, k_new, v_new, dict(cache, ks=cache["ks"].double()), pos, live),
+        (q, k_new, v_new, cache, pos.int(), live),
+        (q, k_new, v_new, cache, pos, live.int()),
+        (q.transpose(0, 1), k_new, v_new, cache, pos, live),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError, match="kv8_decode"):
+            aops.kv8_decode(*args)

@@ -217,3 +217,82 @@ def test_cache_writes_at_per_row_positions():
         np.testing.assert_array_equal(tk[b:b + 1].numpy(), np.asarray(jk))
         np.testing.assert_array_equal(tv[b:b + 1].numpy(), np.asarray(jv))
         np.testing.assert_array_equal(ts[b:b + 1].numpy(), np.asarray(js))
+
+
+def _kv8_step(cache, q, k_new, v_new, pos, live):
+    """The tail's int8 KV decode step as the block composed it before the
+    wrapper: quantize the step's rows, write codes and scales, dequantize
+    the whole cache, attend over each row's first pos + 1 slots."""
+    qk, ks_new = attn.quantize_kv_row(k_new)
+    qv, vs_new = attn.quantize_kv_row(v_new)
+    k_c, v_c = attn.cache_update(cache["k"], cache["v"], qk, qv, pos, live)
+    ks_c = attn.scale_update(cache["ks"], ks_new, pos, live)
+    vs_c = attn.scale_update(cache["vs"], vs_new, pos, live)
+    return attn.decode_attention(q, attn.dequantize_kv(k_c, ks_c, q.dtype),
+                                 attn.dequantize_kv(v_c, vs_c, q.dtype),
+                                 pos + 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv,group,hd", [(3, 1, 128), (2, 4, 64),
+                                         (1, 48, 80)])
+def test_kv8_decode_cpu_route_is_the_composition(kv, group, hd, dtype):
+    """``kernels.attention.ops.kv8_decode`` on CPU tensors: codes, scales,
+    the whole cache and the output bit for bit the composition's, over a
+    ring of 12 slots (position 17 wraps to slot 5), rows at positions 0,
+    5, 11 and 17, the second row's ``live`` flag off. In float32, each
+    row against the reference's scalar-position step: codes and scales bit
+    for bit against the compiled reference, the cache rows equal, the
+    output within ATOL."""
+    from repro_torch.kernels.attention import ops as aops
+
+    rng = np.random.default_rng(8)
+    b, s_c, h = 4, 12, kv * group
+    dt = getattr(torch, dtype)
+    cache = {"k": rng.integers(-127, 128, (b, s_c, kv, hd)).astype(np.int8),
+             "v": rng.integers(-127, 128, (b, s_c, kv, hd)).astype(np.int8),
+             "ks": _rand(rng, b, s_c, kv, scale=0.01) ** 2 + 1e-3,
+             "vs": _rand(rng, b, s_c, kv, scale=0.01) ** 2 + 1e-3}
+    q, k_new, v_new = (_rand(rng, b, 1, h, hd), _rand(rng, b, 1, kv, hd, scale=3.0),
+                       _rand(rng, b, 1, kv, hd))
+    pos = np.array([0, 5, 11, 17])
+    live = np.array([True, False, True, True])
+
+    def run(fn):
+        c = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+        out = fn(c, *(torch.from_numpy(t).to(dt) for t in (q, k_new, v_new)),
+                 torch.from_numpy(pos), torch.from_numpy(live))
+        return out, c
+
+    out, got = run(lambda c, *a: aops.kv8_decode(a[0], a[1], a[2], c, *a[3:]))
+    want_out, want = run(lambda c, *a: _kv8_step(c, *a))
+    assert out.dtype == dt
+    assert torch.equal(out.view(torch.int16 if dtype == "bfloat16"
+                                else torch.int32),
+                       want_out.view(torch.int16 if dtype == "bfloat16"
+                                     else torch.int32))
+    for key in cache:
+        assert torch.equal(got[key], want[key]), key
+    if dtype != "float32":
+        return
+    jquant = jax.jit(jattn.quantize_kv_row)
+    for r in range(b):
+        jk, jv = cache["k"][r:r + 1], cache["v"][r:r + 1]
+        jks, jvs = cache["ks"][r:r + 1], cache["vs"][r:r + 1]
+        if live[r]:
+            qk, sk = jquant(jnp.asarray(k_new[r:r + 1]))
+            qv, sv = jquant(jnp.asarray(v_new[r:r + 1]))
+            jk, jv = jattn.cache_update(jk, jv, qk, qv, jnp.int32(pos[r]))
+            jks = jattn.scale_update(jks, sk, jnp.int32(pos[r]))
+            jvs = jattn.scale_update(jvs, sv, jnp.int32(pos[r]))
+        for key, ref in (("k", jk), ("v", jv)):
+            np.testing.assert_array_equal(got[key][r:r + 1].numpy(),
+                                          np.asarray(ref))
+        for key, ref in (("ks", jks), ("vs", jvs)):
+            np.testing.assert_array_equal(
+                got[key][r:r + 1].numpy().view(np.int32),
+                np.asarray(ref).view(np.int32))
+        ref = jattn.decode_attention(
+            jnp.asarray(q[r:r + 1]), jattn.dequantize_kv(jk, jks, jnp.float32),
+            jattn.dequantize_kv(jv, jvs, jnp.float32), jnp.int32(pos[r] + 1))
+        _close(out[r:r + 1], ref)

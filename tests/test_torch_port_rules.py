@@ -235,3 +235,88 @@ def test_pipelined_serve_cli_runs_on_the_cpu(caplog):
                      "auto"]) == 0
     assert caplog.text.count(" point=") == 3
     assert "pipelined makespan" in caplog.text
+
+
+def _kv8_block(device):
+    """A reduced olmo-1b attention block with an int8 KV cache: its
+    parameters, one decode token's input and context, and a cache of 2
+    rows x 8 slots holding a few written positions, all on ``device``."""
+    from repro_torch.config import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models.api import build_model
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config("olmo-1b").reduced().replace(kv_cache_bits=8)
+    params = tree_map(lambda t: t[0], build_model(cfg).init(0, "cpu")
+                      ["segments"][0])
+    g = torch.Generator().manual_seed(0)
+    cache = blocks.init_block_cache("d", cfg, 2, 8, torch.float32)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randint(-127, 128, cache[key].shape,
+                                       generator=g))
+    for key in ("ks", "vs"):
+        cache[key].copy_(torch.rand(cache[key].shape, generator=g) * 0.1)
+    x = torch.randn((2, 1, cfg.d_model), generator=g)
+    ctx = blocks.DecodeContext(torch.tensor([3, 9]), 0,
+                               torch.tensor([True, False]))
+    move = lambda t: t.to(device)  # noqa: E731
+    return (cfg, tree_map(move, params), move(x),
+            {k: move(t) for k, t in cache.items()},
+            ctx._replace(pos=move(ctx.pos), live=move(ctx.live)))
+
+
+def test_kv8_decode_never_falls_back_and_blocks_route_by_input(monkeypatch):
+    """The int8 KV decode wrapper raises for a meta tensor (no plain
+    fallback). ``block_apply_decode`` hands plain CPU tensors to the
+    wrapper and keeps the plain composition for meta and DTensor caches,
+    whose results equal the wrapper's CPU route."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models import blocks
+    from repro_torch.utils.tree import tree_map
+
+    cfg, params, x, cache, ctx = _kv8_block("meta")
+    q = torch.empty((2, 1, cfg.num_heads, cfg.head_dim_), device="meta")
+    kv = torch.empty((2, 1, cfg.num_kv_heads, cfg.head_dim_), device="meta")
+    with pytest.raises(ValueError, match="kv8_decode"):
+        aops.kv8_decode(q, kv, kv, cache, ctx.pos, ctx.live)
+
+    routes = []
+    kernel, plain = aops.kv8_decode, aops.kv8_decode_plain
+    monkeypatch.setattr(aops, "kv8_decode", lambda *a: routes.append(
+        "wrapper") or kernel(*a))
+    monkeypatch.setattr(aops, "kv8_decode_plain", lambda *a: routes.append(
+        "plain") or plain(*a))
+    out, _ = blocks.block_apply_decode("d", params, x, cache, ctx, cfg)
+    assert out.device.type == "meta" and routes == ["plain"]
+
+    cfg, params, x, cache, ctx = _kv8_block("cpu")
+    ref_cache = {k: t.clone() for k, t in cache.items()}
+    routes.clear()
+    want, _ = blocks.block_apply_decode("d", params, x, ref_cache, ctx, cfg)
+    assert routes == ["wrapper", "plain"]
+
+    started = not dist.is_initialized()
+    assert init_process_group("cpu") == (0, 1)
+    try:
+        mesh = make_host_mesh(device="cpu")
+
+        def dt(t):
+            return distribute_tensor(t, mesh, [Replicate(), Replicate()])
+
+        sharded = {k: dt(t) for k, t in cache.items()}
+        routes.clear()
+        with implicit_replication():
+            got, _ = blocks.block_apply_decode("d", tree_map(dt, params),
+                                               dt(x), sharded, ctx, cfg)
+        assert routes == ["plain"]
+        assert torch.equal(got.full_tensor(), want)
+        for k, t in sharded.items():
+            assert torch.equal(t.full_tensor(), ref_cache[k]), k
+    finally:
+        if started:
+            dist.destroy_process_group()
