@@ -7,17 +7,21 @@ to import every config module manually.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Set
 
 from repro_torch.config.types import ModelConfig
 
 _REGISTRY: Dict[str, ModelConfig] = {}
+# Archs the port runs that the reference registry does not hold.
+_PORT_ONLY: Set[str] = set()
 
 
-def register(cfg: ModelConfig) -> ModelConfig:
+def register(cfg: ModelConfig, port_only: bool = False) -> ModelConfig:
     if cfg.arch_id in _REGISTRY and _REGISTRY[cfg.arch_id] != cfg:
         raise ValueError(f"conflicting registration for {cfg.arch_id}")
     _REGISTRY[cfg.arch_id] = cfg
+    if port_only:
+        _PORT_ONLY.add(cfg.arch_id)
     return cfg
 
 
@@ -41,6 +45,7 @@ def list_archs() -> List[str]:
 
 def assigned_archs() -> List[str]:
     """The 10 architectures assigned from the public pool (not the paper's
-    own CNN testbed)."""
+    own CNN testbed, nor the port-only archs)."""
     _ensure_loaded()
-    return sorted(a for a in _REGISTRY if _REGISTRY[a].family != "cnn")
+    return sorted(a for a in _REGISTRY
+                  if _REGISTRY[a].family != "cnn" and a not in _PORT_ONLY)

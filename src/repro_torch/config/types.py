@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +151,37 @@ class ModelConfig:
             dtype="float32",
             param_dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class MupConfig(ModelConfig):
+    """A port-only architecture with muP scalars (IBM Granite 4.0's
+    ``granitemoehybrid``): the embedding times ``embedding_multiplier``,
+    each residual branch times ``residual_multiplier``, attention scores
+    times ``attention_multiplier``, the logits divided by
+    ``logits_scaling``; Mamba2's ``A_log``, ``D`` and ``dt_bias`` held in
+    ``ssm_param_dtype``. A subclass, so every ``ModelConfig`` keeps the
+    reference's fields, ``asdict`` and ``repr``."""
+
+    embedding_multiplier: float = 0.0   # 0 -> sqrt(d_model)
+    residual_multiplier: float = 1.0    # both residual branches of a block
+    attention_multiplier: float = 0.0   # 0 -> head_dim ** -0.5
+    logits_scaling: float = 1.0         # the logits divided by it
+    ssm_param_dtype: str = "float32"    # Mamba2's A_log, D and dt_bias
+
+
+# What every other config (the port's ``ModelConfig`` and the reference's,
+# which the port also serves) reads for the muP scalars: the defaults,
+# the arithmetic it always had.
+MUP_DEFAULTS = {
+    f.name: f.default for f in dataclasses.fields(MupConfig)
+    if f.name not in {g.name for g in dataclasses.fields(ModelConfig)}}
+
+
+def mup(cfg: Any, name: str) -> Any:
+    """``cfg``'s muP scalar ``name``, or :data:`MUP_DEFAULTS`' where the
+    config has none."""
+    return getattr(cfg, name, MUP_DEFAULTS[name])
 
 
 # ---------------------------------------------------------------------------

@@ -5,11 +5,13 @@ model xlstm-1.3b (family ``ssm``), the Mamba2 hybrid zamba2-2.7b (family
 ``hybrid``), the mixtures of experts grok-1-314b and
 llama4-maverick-400b-a17b (family ``moe``), the vision-language decoder
 qwen2-vl-7b (family ``vlm``) and the encoder-decoder
-seamless-m4t-large-v2 (family ``audio``). Importing this package
+seamless-m4t-large-v2 (family ``audio``); and one arch the port alone
+holds, the Mamba2 hybrid granite-4.0-h-micro. Importing this package
 registers them in ``repro_torch.config.registry``; select with ``--arch
 <id>``."""
 from repro_torch.configs import (  # noqa: F401
     cnn_testbed,
+    granite_4_0_h_micro,
     granite_34b,
     grok_1_314b,
     llama4_maverick_400b_a17b,

@@ -441,10 +441,11 @@ def _block_fmacs_per_token(cfg: ModelConfig) -> List[float]:
     for kind in tf_lib.default_pattern(cfg):
         if kind == "e":             # the k routed experts and the router
             out.append(attn + moe_mlp + d * cfg.num_experts)
-        elif kind == "m":
+        elif kind in ("m", "M"):
             dims = mamba_dims(cfg)
             out.append(d * (2 * dims.d_inner + 2 * dims.state + dims.heads)
-                       + dims.d_inner * d)
+                       + dims.d_inner * d
+                       + (dense_mlp if kind == "M" else 0.0))
         elif kind == "l":
             di = cfg.ssm_expand * d
             out.append(d * 2 * di + 3 * di * di + di * d)

@@ -8,6 +8,7 @@ as it is). Block kinds the port runs:
   'd'  dense decoder block   (attn + SwiGLU)           — llama family
   'e'  MoE decoder block     (attn + top-k experts)    — llama4 / grok
   'm'  Mamba2 block                                    — zamba2
+  'M'  Mamba2 block with its own normed SwiGLU MLP      — granite-4.0-h
   'l'  mLSTM block                                     — xlstm
   's'  sLSTM block                                     — xlstm
   'A'  shared attention block (zamba2; one parameter set, many invocations)
@@ -21,14 +22,21 @@ token a row; returns (x, cache_entry), the entry updated in place: an
 attention block writes each live row's KV at its position, a recurrent
 block overwrites each live row's state and leaves the other rows' as they
 were).
+
+Both residual branches of a block are scaled by its config's
+``residual_multiplier`` (``config.types.mup``) where it is not 1 (a muP
+configuration's); at 1 the sum is the plain ``x + y`` it always was. A
+Mamba2 decode (the mixer and its state's write-back) is a span
+``ssm.decode`` (``rows``, ``tokens``, ``chunks``: 0).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.config.types import ModelConfig
+from repro_torch.config.types import ModelConfig, mup
 from repro_torch.kernels.attention import ops as kv8_ops
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
@@ -47,11 +55,13 @@ from repro_torch.models.layers.moe import (
 )
 from repro_torch.models.layers.norms import apply_norm, norm_spec
 from repro_torch.sharding.activation import like_layout, on_batch_shard
+from repro_torch.utils.trace import span
 
 _ATTN = ("d", "e", "A")     # attention, then SwiGLU ('e': the experts);
                             # 'A' shares its weights
 _ENCDEC = ("E", "c")        # layernorm blocks with a GELU MLP (seamless)
-_RECURRENT = {"m": "mamba", "l": "mlstm", "s": "slstm"}   # kind -> params key
+_RECURRENT = {"m": "mamba", "M": "mamba", "l": "mlstm",
+              "s": "slstm"}     # kind -> params key; 'M' adds an MLP
 
 
 def _check_kind(kind: str) -> None:
@@ -88,6 +98,11 @@ def block_spec(kind: str, cfg: ModelConfig):
     if kind == "m":
         return {"ln": norm_spec(cfg.norm_kind, d, dt_),
                 "mamba": mamba_lib.mamba2_spec(cfg)}
+    if kind == "M":
+        return {"ln": norm_spec(cfg.norm_kind, d, dt_),
+                "mamba": mamba_lib.mamba2_spec(cfg),
+                "ln2": norm_spec(cfg.norm_kind, d, dt_),
+                "mlp": swiglu_spec(d, cfg.d_ff, dt_)}
     if kind == "l":
         return {"ln": norm_spec(cfg.norm_kind, d, dt_),
                 "mlstm": xlstm_lib.mlstm_spec(cfg)}
@@ -166,7 +181,7 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
         entry.update(xk=torch.zeros(shape, dtype=dtype, device=device),
                      xv=torch.zeros(shape, dtype=dtype, device=device))
         return entry
-    if kind == "m":
+    if kind in ("m", "M"):
         return mamba_lib.init_mamba_state(cfg, batch, dtype,
                                           device)._asdict()
     if kind == "l":
@@ -189,7 +204,7 @@ def block_cache_axes(kind: str, cfg: ModelConfig = None):
         if q8:
             return {"k": kv4, "ks": kv3, "v": kv4, "vs": kv3}
         return {"k": kv4, "v": kv4}
-    if kind == "m":
+    if kind in ("m", "M"):
         return {
             "ssm": ("batch", "heads", "ssm_state", "head_dim"),
             "conv": ("batch", None, "conv_out"),
@@ -231,7 +246,8 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
     if kind in _RECURRENT:
         h = apply_norm(cfg.norm_kind, params["ln"], x)
         y, state = _recurrent_seq(kind, params[_RECURRENT[kind]], h, cfg)
-        return x + y, None, state._asdict() if ctx.cache_len else None
+        x = _mixer_mlp(kind, params, _residual(x, y, cfg), cfg)
+        return x, None, state._asdict() if ctx.cache_len else None
     s = x.shape[1]
     if kind == "E":
         # Bidirectional, no window, no cache; RoPE only if the config has
@@ -247,13 +263,13 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
         params["attn"], h, ctx.positions, cfg,
         positions_3d=None if kind == "c" else ctx.positions_3d)
     out = attn_lib.prefill_attention(q, k, v, causal=True, window=ctx.window)
-    x = x + attn_lib.attn_output(params["attn"], out)
+    x = _residual(x, attn_lib.attn_output(params["attn"], out), cfg)
     if kind == "c":
         hx = apply_norm("layernorm", params["ln_x"], x)
         xk, xv = attn_lib.cross_attention_kv(params["xattn"], ctx.enc_out)
         x = x + attn_lib.cross_attention(params["xattn"], hx, xk, xv)
     y, routing = _mlp(kind, params, x, cfg)
-    x = x + y
+    x = _residual(x, y, cfg)
     aux = (load_balance_loss(routing)
            if ctx.want_aux and routing is not None else None)
     cache = None
@@ -262,6 +278,22 @@ def block_apply_seq(kind: str, params, x: torch.Tensor, ctx: SeqContext,
         if kind == "c":
             cache.update(xk=xk, xv=xv)
     return x, aux, cache
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """``x + r * y`` with ``r`` the residual multiplier; ``x + y`` at 1."""
+    r = mup(cfg, "residual_multiplier")
+    return x + y if r == 1.0 else x + y * r
+
+
+def _mixer_mlp(kind: str, params, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """After a recurrent mixer's residual: an ``'M'`` block's own normed
+    SwiGLU MLP and its residual; any other kind is done."""
+    if kind != "M":
+        return x
+    return _residual(x, _mlp(kind, params, x, cfg)[0], cfg)
 
 
 def _norm_kind(kind: str, cfg: ModelConfig) -> str:
@@ -304,8 +336,8 @@ def _recurrent_seq(kind: str, params, h: torch.Tensor, cfg: ModelConfig):
     of whole chunks past one, sequential otherwise). On a mesh it runs on
     each rank's batch shard, weights gathered at use: DTensor refuses to
     unflatten a head dim split wider than the heads (``aten.view``)."""
-    fn = {"m": mamba_lib.mamba2_seq, "l": xlstm_lib.apply_mlstm,
-          "s": xlstm_lib.apply_slstm}[kind]
+    fn = {"m": mamba_lib.mamba2_seq, "M": mamba_lib.mamba2_seq,
+          "l": xlstm_lib.apply_mlstm, "s": xlstm_lib.apply_slstm}[kind]
     return on_batch_shard(lambda p, x: fn(p, x, cfg), params, h)
 
 
@@ -339,12 +371,12 @@ def block_apply_decode(kind: str, params, x: torch.Tensor, cache,
         k_use, v_use = attn_lib.cache_update(cache["k"], cache["v"], k, v,
                                              ctx.pos, ctx.live)
         out = attn_lib.decode_attention(q, k_use, v_use, ctx.pos + 1)
-    x = x + attn_lib.attn_output(params["attn"], out)
+    x = _residual(x, attn_lib.attn_output(params["attn"], out), cfg)
     if kind == "c":
         hx = apply_norm("layernorm", params["ln_x"], x)
         x = x + attn_lib.cross_attention(params["xattn"], hx, cache["xk"],
                                          cache["xv"])
-    return x + _mlp(kind, params, x, cfg)[0], cache
+    return _residual(x, _mlp(kind, params, x, cfg)[0], cfg), cache
 
 
 def _plain_tensor(t: torch.Tensor) -> bool:
@@ -360,10 +392,12 @@ def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,
     position to mask by, so rows whose ``live`` flag is off keep every
     leaf (the conv window and ``m`` included) exactly as it was."""
     h = apply_norm(cfg.norm_kind, params["ln"], x)
-    if kind == "m":
+    if kind in ("m", "M"):
         def step(p, hx, st):
             return mamba_lib.decode_mamba2(p, hx, st, cfg)
         state = mamba_lib.MambaState(**cache)
+        sp = span("ssm.decode", rows=x.shape[0], tokens=x.shape[0],
+                  chunks=0)
     else:
         apply = xlstm_lib.apply_mlstm if kind == "l" else \
             xlstm_lib.apply_slstm
@@ -372,12 +406,14 @@ def _recurrent_decode(kind: str, params, x: torch.Tensor, cache,
 
         def step(p, hx, st):
             return apply(p, hx, cfg, st)
-    # On a mesh: each rank's batch shard, as in _recurrent_seq.
-    y, state = on_batch_shard(step, params[_RECURRENT[kind]], h, state)
-    for k, new in state._asdict().items():
-        buf = cache[k]
-        if ctx.live is not None:
-            keep = ctx.live.reshape((-1,) + (1,) * (new.ndim - 1))
-            new = torch.where(keep, new, buf)
-        buf.copy_(like_layout(new, buf))
-    return x + y, cache
+        sp = contextlib.nullcontext()
+    with sp:
+        # On a mesh: each rank's batch shard, as in _recurrent_seq.
+        y, state = on_batch_shard(step, params[_RECURRENT[kind]], h, state)
+        for k, new in state._asdict().items():
+            buf = cache[k]
+            if ctx.live is not None:
+                keep = ctx.live.reshape((-1,) + (1,) * (new.ndim - 1))
+                new = torch.where(keep, new, buf)
+            buf.copy_(like_layout(new, buf))
+    return _mixer_mlp(kind, params, _residual(x, y, cfg), cfg), cache

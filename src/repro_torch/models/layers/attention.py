@@ -16,12 +16,14 @@ reference's custom VJP does.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.config.types import ModelConfig
+from repro_torch.config.types import ModelConfig, mup
 from repro_torch.models.init import spec
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.sharding.activation import (
@@ -83,7 +85,8 @@ def project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, rope: bool = True,
                 positions_3d: Optional[torch.Tensor] = None):
     """Project to (q, k, v); applies qk-norm then RoPE/M-RoPE to q and k
-    (M-RoPE at ``positions_3d``, or at the text ids of ``positions``)."""
+    (M-RoPE at ``positions_3d``, or at the text ids of ``positions``),
+    and a muP attention multiplier to q."""
     q = constrain(_proj(x, params["wq"]), _QHEADS)
     k = constrain(_proj(x, params["wk"]), _KVHEADS)
     v = constrain(_proj(x, params["wv"]), _KVHEADS)
@@ -99,6 +102,12 @@ def project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
         else:
             q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
             k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    if mup(cfg, "attention_multiplier"):
+        # Every attention route scales scores by head_dim ** -0.5; q takes
+        # the rest of a muP score scale (granite's 1/64 over 1/8: 2^-3,
+        # exact in bfloat16), so no route changes.
+        q = q * (mup(cfg, "attention_multiplier")
+                 * math.sqrt(cfg.head_dim_))
     return q, k, v
 
 
@@ -184,9 +193,13 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+# The chunked attention's query and key/value chunk.
+CHUNK = 1024
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, window: int = 0, q_chunk: int = 1024,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      causal: bool, window: int = 0, q_chunk: int = CHUNK,
+                      kv_chunk: int = CHUNK) -> torch.Tensor:
     """Flash attention: outer loop over query chunks, inner online softmax
     over key/value chunks. When a gradient is asked for, the call is an
     autograd Function whose backward RECOMPUTES each score block from
@@ -322,14 +335,30 @@ class _Flash(torch.autograd.Function):
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       dense_threshold: int = 2048) -> torch.Tensor:
     """Dense attention up to ``dense_threshold`` query positions (or for a
-    causal call whose query and key lengths differ), chunked above."""
-    if q.shape[1] <= dense_threshold or (causal and q.shape[1] != k.shape[1]):
+    causal call whose query and key lengths differ), chunked above. A
+    causal length past one :data:`CHUNK` and not a multiple of it is
+    padded to whole chunks (:func:`_padded`)."""
+    s = q.shape[1]
+    if s <= dense_threshold or (causal and s != k.shape[1]):
         core = functools.partial(full_attention, causal=causal,
                                  window=window)
     else:
         core = functools.partial(chunked_attention, causal=causal,
                                  window=window)
+        if causal and s > CHUNK and s % CHUNK:
+            core = _padded(core, -s % CHUNK)
     return _on_head_shards(core, q, k, v)
+
+
+def _padded(core, pad: int):
+    """A causal attention ``core`` over its sequence padded by ``pad``
+    zero positions at the end: no real query reaches a pad (each sits
+    after every real position), and the pads' own rows are dropped."""
+    def run(q, k, v):
+        s = q.shape[1]
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        return core(q, k, v)[:, :s]
+    return run
 
 
 # ---------------------------------------------------------------------------

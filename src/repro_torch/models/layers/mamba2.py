@@ -2,26 +2,34 @@
 
 Prefill uses the chunk-wise SSD algorithm (an intra-chunk quadratic,
 attention-like term plus an inter-chunk recurrent state carried by a loop
-over chunks) when the length is a multiple of the chunk and longer than
-it, and the plain recurrence otherwise. Decode is the recurrence
-``S <- S*exp(dt*A) + dt*B x^T; y = C.S + D*x``.
+over chunks) when the length is longer than one chunk, and the plain
+recurrence otherwise. A length that is not a multiple of the chunk pads
+its last chunk with ``dt = 0`` (and zero inputs): the state passes a pad
+unchanged, and the pads' outputs are dropped. Decode is the recurrence
+``S <- S*exp(dt*A) + dt*B x^T; y = C.S + D*x``. Each prefill is a span
+``ssm.prefill`` (``rows``, ``tokens``, ``chunks``: 0 on the recurrence)
+and counts in :data:`PREFILLS` by route.
 
 State layout: ``S``: (batch, heads, state, head_dim) float32; the conv
 state keeps the last (width-1) raw conv inputs in the model dtype.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config.types import ModelConfig
+from repro_torch.config.types import ModelConfig, mup
 from repro_torch.models.init import spec
 from repro_torch.utils.scan import scan
+from repro_torch.utils.trace import span
 
 MAMBA_HEAD_DIM = 64
 SSD_CHUNK = 256
+# Prefills by route: "chunked" (the chunked SSD) or "recurrence".
+PREFILLS: "collections.Counter[str]" = collections.Counter()
 
 
 class MambaDims(NamedTuple):
@@ -47,15 +55,15 @@ def mamba2_spec(cfg: ModelConfig):
     d = cfg.d_model
     dims = mamba_dims(cfg)
     di, h, n, w = dims.d_inner, dims.heads, dims.state, dims.conv_width
-    dt_ = cfg.param_dtype
+    dt_, ssm_dt = cfg.param_dtype, mup(cfg, "ssm_param_dtype")
     return {
         # in_proj -> [z(di), x(di), B(n), C(n), dt(h)]
         "in_proj": spec((d, 2 * di + 2 * n + h), ("embed", "ssm_in"), dt_),
         "conv_w": spec((w, dims.conv_channels), (None, "ssm_in"), dt_, scale=0.5),
         "conv_b": spec((dims.conv_channels,), ("ssm_in",), dt_, init="zeros"),
-        "A_log": spec((h,), ("heads",), "float32", init="zeros"),
-        "D": spec((h,), ("heads",), "float32", init="ones"),
-        "dt_bias": spec((h,), ("heads",), "float32", init="zeros"),
+        "A_log": spec((h,), ("heads",), ssm_dt, init="zeros"),
+        "D": spec((h,), ("heads",), ssm_dt, init="ones"),
+        "dt_bias": spec((h,), ("heads",), ssm_dt, init="zeros"),
         "norm_scale": spec((di,), ("ffn",), dt_, init="ones"),
         "out_proj": spec((di, d), ("ffn", "embed"), dt_),
     }
@@ -91,10 +99,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     a = dtc * A                                    # (b,nc,q,h)
     a_cs = torch.cumsum(a, dim=2)
 
-    # Intra-chunk (quadratic) term.
+    # Intra-chunk (quadratic) term. The weights (C_q . B_s) L_qs dt_s are
+    # formed first, so the product with x is one batched matmul: a path
+    # einsum picks for the four operands at once can hold a (b, nc, q, s,
+    # h, p) intermediate, 30 GB at 7,168 positions of 64 heads of 64.
     L = torch.exp(_segsum(a.permute(0, 1, 3, 2)))  # (b,nc,h,q,s)
     scores = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
-    y_diag = torch.einsum("bcqs,bchqs,bcsh,bcshp->bcqhp", scores, L, dtc, xc)
+    w = scores[:, :, None] * L * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_diag = torch.einsum("bchqs,bcshp->bcqhp", w, xc)
 
     # Per-chunk end states.
     decay_to_end = torch.exp(a_cs[:, :, -1:, :] - a_cs)       # (b,nc,q,h)
@@ -179,8 +191,8 @@ def _ssm_inputs(params, xbc: torch.Tensor, dt_raw: torch.Tensor,
     xin = xbc[..., : dims.d_inner]
     Bm = xbc[..., dims.d_inner: dims.d_inner + dims.state]
     Cm = xbc[..., dims.d_inner + dims.state:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
     xh = xin.reshape(*xin.shape[:2], dims.heads, dims.head_dim)
     return xh, Bm, Cm, dt, A
 
@@ -195,29 +207,55 @@ def _gated_out(params, y: torch.Tensor, z: torch.Tensor,
     return torch.matmul(yn.to(dtype), params["out_proj"])
 
 
+def ssd_chunks(length: int, chunk: int = SSD_CHUNK) -> int:
+    """Chunks a prefill of ``length`` takes, its last one padded: 0 (the
+    recurrence) up to one chunk."""
+    return -(-length // chunk) if length > chunk else 0
+
+
+def ssd_padded(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               B: torch.Tensor, C: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunked` over any length: the last chunk padded with
+    ``dt = 0`` and zero inputs, so each pad decays the state by
+    ``exp(0) = 1`` and adds nothing; the pads' outputs are dropped."""
+    length = x.shape[1]
+    pad = -length % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (dt, B, C))
+    y, S = ssd_chunked(x, dt, A, B, C, chunk)
+    return y[:, :length], S
+
+
 def mamba2_seq(params, x: torch.Tensor, cfg: ModelConfig,
                chunk: int = SSD_CHUNK) -> Tuple[torch.Tensor, MambaState]:
     """Full-sequence forward with its final recurrent state. x: (B, L, d).
-    The SSD is chunked when L is a multiple of ``chunk`` and longer than
-    it, sequential otherwise. The conv state is re-derived from the last
-    width-1 raw conv inputs, left-padded with zeros when L is shorter."""
+    The SSD is chunked when L is longer than ``chunk`` (the last chunk
+    padded, :func:`ssd_padded`), sequential otherwise. The conv state is
+    re-derived from the last width-1 raw conv inputs, left-padded with
+    zeros when L is shorter."""
     dims = mamba_dims(cfg)
-    proj = torch.matmul(x, params["in_proj"])
-    z, xbc_raw, dt_raw = _split_in_proj(proj, dims)
-    conv_tail = xbc_raw[:, -(dims.conv_width - 1):]
-    if x.shape[1] < dims.conv_width - 1:
-        conv_tail = F.pad(conv_tail,
-                          (0, 0, dims.conv_width - 1 - x.shape[1], 0))
-    xbc = F.silu(_causal_depthwise_conv(
-        xbc_raw, params["conv_w"], params["conv_b"]).float())
-    xh, Bm, Cm, dt, A = _ssm_inputs(params, xbc, dt_raw, dims)
-    if x.shape[1] % chunk == 0 and x.shape[1] > chunk:
-        y, S = ssd_chunked(xh, dt, A, Bm, Cm, chunk)
-    else:
-        y, S = ssd_sequential(xh, dt, A, Bm, Cm)
-    y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(*x.shape[:2], dims.d_inner)
-    return _gated_out(params, y, z, x.dtype), MambaState(S, conv_tail)
+    b, length = x.shape[:2]
+    chunks = ssd_chunks(length, chunk)
+    PREFILLS["chunked" if chunks else "recurrence"] += 1
+    with span("ssm.prefill", rows=b, tokens=b * length, chunks=chunks):
+        proj = torch.matmul(x, params["in_proj"])
+        z, xbc_raw, dt_raw = _split_in_proj(proj, dims)
+        conv_tail = xbc_raw[:, -(dims.conv_width - 1):]
+        if length < dims.conv_width - 1:
+            conv_tail = F.pad(conv_tail,
+                              (0, 0, dims.conv_width - 1 - length, 0))
+        xbc = F.silu(_causal_depthwise_conv(
+            xbc_raw, params["conv_w"], params["conv_b"]).float())
+        xh, Bm, Cm, dt, A = _ssm_inputs(params, xbc, dt_raw, dims)
+        if chunks:
+            y, S = ssd_padded(xh, dt, A, Bm, Cm, chunk)
+        else:
+            y, S = ssd_sequential(xh, dt, A, Bm, Cm)
+        y = y + params["D"][None, None, :, None] * xh
+        y = y.reshape(b, length, dims.d_inner)
+        return _gated_out(params, y, z, x.dtype), MambaState(S, conv_tail)
 
 
 def apply_mamba2(params, x: torch.Tensor, cfg: ModelConfig,

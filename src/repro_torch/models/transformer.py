@@ -18,6 +18,10 @@ the reference's extras beside the boundary, ``{"positions", "enc_out",
 at different positions; the reference vmaps batch-1 decodes instead.
 Caches are updated in place.
 
+A muP configuration (granite-4.0-h) scales the embedding by
+``embedding_multiplier`` instead of ``sqrt(d_model)`` and divides the
+logits by ``logits_scaling`` (``config.types.mup``).
+
 A hybrid model (zamba2) invokes ONE shared attention block ``'A'`` after
 every ``shared_attention_every`` blocks: its segments hold no parameters
 (``{}``), every invocation reads ``params["shared_attn"]`` and keeps its
@@ -34,7 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config.types import ModelConfig
+from repro_torch.config.types import ModelConfig, mup
 from repro_torch.models import blocks as blk
 from repro_torch.models.init import spec, stack_tree, torch_dtype
 from repro_torch.models.layers.norms import apply_norm, norm_spec
@@ -198,6 +202,8 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         lg = torch.matmul(x, params["embed"].t())
     else:
         lg = torch.matmul(x, params["lm_head"])
+    if mup(cfg, "logits_scaling") != 1.0:
+        lg = lg / mup(cfg, "logits_scaling")
     # Keep the (B, S, V) tensor vocab-sharded.
     return constrain(lg, ("batch", "seq", "vocab"))
 
@@ -208,7 +214,8 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     # whose rows are split over two mesh dims ("pod" and "data").
     x = on_batch_shard(lambda p, t: p["embed"][t],
                        {"embed": params["embed"]}, tokens)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    scale = mup(cfg, "embedding_multiplier") or math.sqrt(cfg.d_model)
+    return x * torch.tensor(scale, dtype=x.dtype)
 
 
 def _vision_positions_3d(n_vis: int, text_len: int, batch: int,

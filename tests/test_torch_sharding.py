@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from repro.config import get_config as jget_config  # noqa: E402
+from repro.config import list_archs as jlist_archs  # noqa: E402
 from repro.config import types as jtypes  # noqa: E402
 from repro.models.api import build_model as jbuild_model  # noqa: E402
 from repro.sharding import rules as jrules  # noqa: E402
@@ -29,7 +30,6 @@ from repro_torch.config import (  # noqa: E402
     SINGLE_POD_MESH,
     MeshConfig,
     get_config,
-    list_archs,
 )
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
@@ -68,7 +68,7 @@ def _pairs(port, ref, path=""):
         yield path, port, ref
 
 
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", jlist_archs())
 def test_resolve_spec_matches_reference_on_every_leaf(arch):
     port = build_model(get_config(arch)).specs
     ref = jbuild_model(jget_config(arch)).specs

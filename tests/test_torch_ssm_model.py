@@ -99,11 +99,12 @@ def _ref_leaves(jcaches, plan):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", jlist_archs())
 def test_registered_configs_equal_reference(arch):
-    """Every config registered in the port equals, field for field, the
-    reference registry's entry of the same arch id."""
-    assert arch in jlist_archs()
+    """Every config the reference registers equals, field for field, the
+    port's entry of the same arch id (the port-only archs, which the
+    reference has no entry for, are held in their own tests)."""
+    assert arch in list_archs()
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
         jget_config(arch))
     assert repr(get_config(arch)) == repr(jget_config(arch))

@@ -27,14 +27,16 @@ import jax  # noqa: E402
 
 from repro.config import INPUT_SHAPES as J_SHAPES  # noqa: E402
 from repro.config import get_config as jget_config  # noqa: E402
+from repro.config import list_archs as jlist_archs  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.models.api import build_model as jbuild_model  # noqa: E402
-from repro_torch.config import INPUT_SHAPES, ShapeConfig, get_config, list_archs  # noqa: E402
+from repro_torch.config import INPUT_SHAPES, ShapeConfig, get_config  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.utils.tree import tree_flatten_with_path  # noqa: E402
 
-ARCHS = list_archs()
+# The reference's archs: the port-only ones have nothing to match.
+ARCHS = jlist_archs()
 
 
 def _is_axes(x) -> bool:
